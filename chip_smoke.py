@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel bit-exact against its plain PyTorch twin on the card at the
-shapes the lossless 5/3 path gives it, times kernel and twin, then drives
-grok_tpu_torch.compress / decompress with backend="device" on three cases:
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc
+a source, in parallel) and the native host coder from native/, holds each
+kernel bit-exact against its plain PyTorch twin on the card at the shapes
+the lossless 5/3 path gives it, times kernel and twin, then drives
+grok_tpu_torch.compress / decompress with their defaults (the card) on
+three cases:
 
   (a) BASELINE config 1: 512x512 8-bit gray, 6 resolutions, MQ coder;
   (b) a 3840x2160 8-bit RGB frame, lossless 5/3 + RCT, 6 resolutions,
@@ -15,10 +17,12 @@ grok_tpu_torch.compress / decompress with backend="device" on three cases:
 
 Each case must write the same bytes as the port's plain route (its twins,
 device="cpu") and its host route (backend="native") in this process,
-decode bit-exact, raise every launch counter of its path and send no tile
-down the host path.  Every phase raises on failure.  The last two lines are one JSON
-object with the kernels' launches, errors and times, and the ok line.
-Exits nonzero, printing neither, when no CUDA device is present.
+decode bit-exact, raise every launch counter of its path (case (b): one
+launch of each level kernel a DWT level, one of each RCT kernel) and send
+no tile down the host path.  No jax and no grok_tpu module may load.
+Every phase raises on failure.  The last two lines are one JSON object with
+the kernels' launches, errors, times and bounds, and the ok line.  Exits
+nonzero, printing neither, when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -37,6 +41,11 @@ SEED = 20261016
 INT_MIN, INT_MAX = -(2 ** 31), 2 ** 31 - 1
 UHD = (2160, 3840)
 QUEUED = 16  # launches queued before one synchronize, for amortised times
+# the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
+# device memory, and 32-bit operations outside the tensor cores (the float32
+# rate; the integer lifting and colour sums run on the same lanes)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 
 def run(cmd: list[str]) -> str:
@@ -96,44 +105,40 @@ def level_shapes(h, w, numres):
     return out
 
 
-def lift_cases(gen):
-    """(axis, input tensor) for the lifting checks: every pass of case
-    (b)'s five levels, the short and odd lengths, and int32 extremes."""
-    cases = []
-    for (h, w) in level_shapes(*UHD, 6):
-        cases.append((-2, randint(gen, (3, 1, h, w), -512, 512)))
-        for hh in ((h + 1) // 2, h // 2):
-            cases.append((-1, randint(gen, (3, 1, hh, w), -1024, 1024)))
-    for n in (1, 2, 3, 37):
-        for w in (1, 257):
-            for axis in (-2, -1):
-                shape = (2, n, w) if axis == -2 else (2, w, n)
-                cases.append((axis, randint(gen, shape, -5000, 5000)))
-    for axis in (-2, -1):
-        cases.append((axis, extremes(gen, (3, 1, 37, 53))))
-        cases.append((axis, extremes(gen, (2, 64, 67))))
+def level_cases(gen):
+    """(planes, H, W) inputs for the level checks: every level of case
+    (b) and of case (c)'s 16 batched 512x512 tiles, the short and odd
+    sizes, and int32 extremes."""
+    cases = [randint(gen, (3, 1, h, w), -512, 512)
+             for (h, w) in level_shapes(*UHD, 6)]
+    cases += [randint(gen, (3, 16, h, w), -512, 512)
+              for (h, w) in level_shapes(512, 512, 6)]
+    sizes = (1, 2, 3, 37, 135, 257)
+    cases += [randint(gen, (2, h, w), -5000, 5000)
+              for h in sizes for w in sizes]
+    cases += [extremes(gen, shape)
+              for shape in ((3, 1, 37, 53), (2, 64, 67), (1, 135, 257),
+                            (2, 1, 9), (2, 9, 1))]
     return cases
 
 
-def check_lifting(gen, lifting):
-    err = {"fwd_53_lift": 0, "inv_53_lift": 0}
-    for axis, x in lift_cases(gen):
-        lo, hi = lifting.fwd_53_lift(x, axis)
-        rlo, rhi = lifting.fwd_53_lift_plain(x, axis)
-        err["fwd_53_lift"] = max(err["fwd_53_lift"], max_err(lo, rlo),
-                                 max_err(hi, rhi))
-        # the inverse, from the forward halves and from arbitrary halves
-        n = x.shape[axis]
-        arb_lo = x.narrow(axis, 0, (n + 1) // 2).contiguous()
-        arb_hi = x.narrow(axis, (n + 1) // 2, n // 2).contiguous()
-        for a, b in ((lo, hi), (arb_lo, arb_hi)):
-            out = lifting.inv_53_lift(a, b, n, axis)
-            ref = lifting.inv_53_lift_plain(a, b, n, axis)
-            err["inv_53_lift"] = max(err["inv_53_lift"], max_err(out, ref))
-        back = lifting.inv_53_lift(lo, hi, n, axis)
-        if not torch.equal(back, x):
-            raise AssertionError(f"5/3 round trip differs at {tuple(x.shape)}"
-                                 f" axis {axis}")
+def check_levels(gen, dwt):
+    err = {"fwd53_level": 0, "inv53_level": 0}
+    for x in level_cases(gen):
+        h, w = x.shape[-2:]
+        bands = dwt.fwd_level(x)
+        ref = dwt.fwd_level_plain(x)
+        err["fwd53_level"] = max([err["fwd53_level"]] +
+                                 [max_err(b, r) for b, r in zip(bands, ref)])
+        # the inverse, from the forward bands and from arbitrary bands
+        arb = [x.reshape(-1)[:b.numel()].reshape(b.shape).contiguous()
+               for b in bands]
+        for bs in (bands, arb):
+            err["inv53_level"] = max(err["inv53_level"], max_err(
+                dwt.inv_level(*bs, h, w), dwt.inv_level_plain(*bs, h, w)))
+        if not torch.equal(dwt.inv_level(*bands, h, w), x):
+            raise AssertionError(f"5/3 round trip differs at "
+                                 f"{tuple(x.shape)}")
     return err
 
 
@@ -202,59 +207,66 @@ def time_ms(fn) -> tuple[float, float]:
     return statistics.median(single), start.elapsed_time(end) / QUEUED
 
 
-def time_kernels(gen, lifting, mct):
+def time_kernels(gen, dwt, mct):
     """Kernel and twin at case (b)'s level-1 shapes, in turns (twin,
-    kernel, kernel, twin); returns {name: (ms, plain_ms)} amortised."""
+    kernel, kernel, twin); returns {name: (ms, plain_ms, bound_ms,
+    bound_by)}, times amortised."""
     h, w = UHD
     x = randint(gen, (3, 1, h, w), -512, 512)
-    lo_v, hi_v = lifting.fwd_53_lift(x, -2)
-    ll, hl = lifting.fwd_53_lift(lo_v, -1)
+    bands = dwt.fwd_level(x)
     rgb = [randint(gen, UHD, 0, 256) for _ in range(3)]
     ycc = [randint(gen, UHD, -255, 256) for _ in range(3)]
+    samples = x.numel()
+    # (kernel, twin, samples, integer operations a sample): a level does,
+    # on each axis and for each pair of samples, a predict (add, shift,
+    # subtract) and an update (add, add, shift, add): 7 a sample for both
+    # axes; the forward RCT with its DC shift about 3 a sample, the
+    # inverse with its unshift and clip about 5
     runs = {
-        "fwd_53_lift": (lambda: lifting.fwd_53_lift(x, -2),
-                        lambda: lifting.fwd_53_lift_plain(x, -2), x.numel()),
-        "fwd_53_lift horizontal": (
-            lambda: lifting.fwd_53_lift(lo_v, -1),
-            lambda: lifting.fwd_53_lift_plain(lo_v, -1), lo_v.numel()),
-        "inv_53_lift": (lambda: lifting.inv_53_lift(lo_v, hi_v, h, -2),
-                        lambda: lifting.inv_53_lift_plain(lo_v, hi_v, h, -2),
-                        x.numel()),
-        "inv_53_lift horizontal": (
-            lambda: lifting.inv_53_lift(ll, hl, w, -1),
-            lambda: lifting.inv_53_lift_plain(ll, hl, w, -1), lo_v.numel()),
+        "fwd53_level": (lambda: dwt.fwd_level(x),
+                        lambda: dwt.fwd_level_plain(x), samples, 7),
+        "inv53_level": (lambda: dwt.inv_level(*bands, h, w),
+                        lambda: dwt.inv_level_plain(*bands, h, w),
+                        samples, 7),
         "rct_forward_shift": (
             lambda: mct.rct_forward_shift(*rgb, 8, False),
             lambda: mct.rct_forward_shift_plain(*rgb, 8, False),
-            3 * h * w),
+            3 * h * w, 3),
         "rct_inverse_unshift": (
             lambda: mct.rct_inverse_unshift(*ycc, 8, False),
             lambda: mct.rct_inverse_unshift_plain(*ycc, 8, False),
-            3 * h * w),
+            3 * h * w, 5),
     }
     times = {}
-    for name, (kernel, plain, samples) in runs.items():
+    for name, (kernel, plain, samples, ops) in runs.items():
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
                           time_ms(plain))
         k_single, k_amort = min(k1[0], k2[0]), min(k1[1], k2[1])
         p_single, p_amort = min(p1[0], p2[0]), min(p1[1], p2[1])
-        # each pass reads and writes every sample once: 8 bytes a sample
+        # each kernel reads every int32 sample once and writes it once
+        nbytes = 8 * samples
+        bounds = {"bytes": 1e3 * nbytes / PEAK_BYTES_S,
+                  "operations": 1e3 * ops * samples / PEAK_OPS_S}
+        bound_by = max(bounds, key=bounds.get)
         log(f"time {name:24s} {samples} samples: kernel {k_single:.4f} ms "
             f"per launch, {k_amort:.4f} ms amortised "
             f"({samples / k_amort / 1e6:.2f} GS/s, "
-            f"{8 * samples / k_amort / 1e9:.1f} TB/s at 8 B/sample); "
-            f"twin {p_single:.4f} ms per launch, {p_amort:.4f} ms amortised")
-        times[name] = (k_amort, p_amort)
+            f"{nbytes / k_amort / 1e9:.1f} TB/s at 8 B/sample); "
+            f"twin {p_single:.4f} ms per launch, {p_amort:.4f} ms "
+            f"amortised; bound {bounds[bound_by]:.4f} ms ({bound_by})")
+        times[name] = (k_amort, p_amort, bounds[bound_by], bound_by)
     return times
 
 
 # ------------------------------------------------------------- codec cases
 
-def codec_case(name, arr, kw, expect, counters):
-    """Encode and decode `arr` through grok_tpu_torch on the card; check
-    the bytes against the port's plain route (its twins on the CPU) and
-    its host route (backend="native"), the decode against the input, and
-    the launch and host-path counters.  Returns the launch counts."""
+def codec_case(name, arr, kw, expect, counters, exact=None):
+    """Encode and decode `arr` through grok_tpu_torch on the card, with
+    the entry points' defaults; check the bytes against the port's plain
+    route (its twins on the CPU) and its host route (backend="native"),
+    the decode against the input, and the launch and host-path counters
+    (every counter in `expect` risen; `exact`, if given, the counts
+    exactly).  Returns the launch counts."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
     from grok_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -263,17 +275,14 @@ def codec_case(name, arr, kw, expect, counters):
     img = GrkImage.from_array(arr)
     pixels = arr.shape[0] * arr.shape[1]
 
-    plain = grok_tpu_torch.compress(
-        img, CompressParams(backend="device", **kw), device="cpu")
+    plain = grok_tpu_torch.compress(img, CompressParams(**kw), device="cpu")
     host = grok_tpu_torch.compress(img, CompressParams(backend="native",
                                                        **kw))
     reset_launches()
     for k in HOST_PATH_TILES:
         HOST_PATH_TILES[k] = 0
-    data = grok_tpu_torch.compress(
-        img, CompressParams(backend="device", **kw), device="cuda")
-    out = grok_tpu_torch.decompress(
-        data, DecompressParams(backend="device"), device="cuda")
+    data = grok_tpu_torch.compress(img, CompressParams(**kw))
+    out = grok_tpu_torch.decompress(data)
     counts = dict(LAUNCHES)
     host_tiles = dict(HOST_PATH_TILES)
     for ref, route in ((plain, "plain route"), (host, "host route")):
@@ -285,6 +294,9 @@ def codec_case(name, arr, kw, expect, counters):
     missing = [k for k in expect if counts[k] == 0]
     if missing:
         raise AssertionError(f"case {name}: no launches of {missing}")
+    if exact is not None and counts != exact:
+        raise AssertionError(f"case {name}: launches {counts}, expected "
+                             f"{exact}")
     if any(host_tiles.values()):
         raise AssertionError(f"case {name}: tiles took the host path: "
                              f"{host_tiles}")
@@ -335,6 +347,8 @@ def stage_breakdown(arr):
     from grok_tpu_torch.ops import pipeline
 
     kw = dict(numres=6, reversible=True, mct=1, prec=8, sgnd=False)
+    pipeline.analysis(torch.zeros((3, 1, 64, 64), dtype=torch.int32,
+                                  device="cuda"), **kw)  # warm the path
     stack = np.ascontiguousarray(
         np.moveaxis(arr.astype(np.int32), -1, 0)[:, None])
     ms = {}
@@ -368,8 +382,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     import grok_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from grok_tpu_torch.kernels import build
-    from grok_tpu_torch.ops import lifting, mct
+    from grok_tpu_torch.kernels import LAUNCHES, build
+    from grok_tpu_torch.ops import dwt, mct
 
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
@@ -390,34 +404,43 @@ def main() -> int:
     log(f"native host coder ready in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    err = check_lifting(gen, lifting)
+    err = check_levels(gen, dwt)
     err.update(check_rct(gen, mct))
     torch.cuda.synchronize()
     log(f"kernel vs twin max abs err: {err}")
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their twins: {err}")
-    times = time_kernels(gen, lifting, mct)
+    times = time_kernels(gen, dwt, mct)
 
-    lift = ("fwd_53_lift", "inv_53_lift")
+    lift = ("fwd53_level", "inv53_level")
     every = lift + ("rct_forward_shift", "rct_inverse_unshift")
+    if set(LAUNCHES) != set(every):
+        raise AssertionError(f"launch counters {sorted(LAUNCHES)}, "
+                             f"expected {sorted(every)}")
     card_note = f"card {card}"
     codec_case("a config-1 512x512 gray MQ", make_image(),
                dict(numresolution=6), lift, card_note)
     uhd = make_rgb(*UHD, seed=SEED)
+    # the main path: one launch of each level kernel a level, five levels
     counts = codec_case("b 3840x2160 RGB HT lossless", uhd,
-                        dict(numresolution=6, ht=True), every, card_note)
+                        dict(numresolution=6, ht=True), every, card_note,
+                        exact={"fwd53_level": 5, "inv53_level": 5,
+                               "rct_forward_shift": 1,
+                               "rct_inverse_unshift": 1})
     codec_case("c 2048x2048 RGB 512^2 tiles MQ", make_rgb(2048, 2048, SEED),
                dict(numresolution=6, tile_size=(512, 512)), every,
                card_note)
     stage_breakdown(uhd)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))
+    if loaded:
+        raise AssertionError(f"jax or grok_tpu modules loaded: {loaded}")
 
     kernels = []
     replaces = {
-        "fwd_53_lift": ("grok_tpu_torch/csrc/lifting53.cu",
+        "fwd53_level": ("grok_tpu_torch/csrc/dwt53_level.cu",
                         "grok_tpu/ops/pallas_dwt.py:78"),
-        "inv_53_lift": ("grok_tpu_torch/csrc/lifting53.cu",
+        "inv53_level": ("grok_tpu_torch/csrc/dwt53_level.cu",
                         "grok_tpu/ops/pallas_dwt.py:105"),
         "rct_forward_shift": ("grok_tpu_torch/csrc/rct.cu",
                               "grok_tpu/ops/mct.py:92"),
@@ -426,10 +449,13 @@ def main() -> int:
     }
     for name in every:
         source, tpu = replaces[name]
+        ms, plain_ms, bound_ms, bound_by = times[name]
+        # no single PyTorch call computes a 5/3 level or the fused RCT
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": tpu, "launches": counts[name],
-                        "max_abs_err": err[name], "ms": times[name][0],
-                        "plain_ms": times[name][1]})
+                        "max_abs_err": err[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

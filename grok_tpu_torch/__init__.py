@@ -4,28 +4,31 @@ The port runs grok_tpu's lossless 5/3 encode and decode with its sample
 transforms (DC shift, reversible colour transform, multi-level 5/3 DWT) on
 an NVIDIA Hopper card, through CUDA kernels written by hand for sm_90a
 (grok_tpu_torch/csrc) that replace grok_tpu's Pallas kernels.  It imports
-torch and never jax: parameters, images, markers, geometry, rate control,
-Tier-2 and the native Tier-1 coder are grok_tpu's host code, imported as
-they are, so both packages write the same codestreams.
+torch and never jax, and nothing of grok_tpu: parameters, images, markers,
+geometry, rate control and Tier-2 are the port's own copies of grok_tpu's
+host modules, and Tier-1 runs on the native C++ coder in `native/`, which
+the port compiles itself (t1/native.py), so both packages write the same
+codestreams.  By default the entry points run on the card.
 """
 
 __version__ = "0.1.0"
 
-from grok_tpu.image import GrkImage  # noqa: F401
-from grok_tpu.params import CompressParams, DecompressParams  # noqa: F401
+from .image import GrkImage  # noqa: F401
+from .params import CompressParams, DecompressParams  # noqa: F401
 
 _CODEC_API = ("compress", "decompress", "read_header")
 _ERRORS = ("GrkError", "CodestreamError", "ParamError")
 
 
 def __getattr__(name):
-    # keep the top-level import light: torch loads with the codec
+    # keep the top-level import light: torch and the native coder load
+    # with the codec
     if name in _CODEC_API:
         from . import codec
 
         return getattr(codec, name)
     if name in _ERRORS:
-        from grok_tpu import errors
+        from . import errors
 
         return getattr(errors, name)
     raise AttributeError(name)

@@ -1,32 +1,214 @@
-"""Codestream compression driver of the port.
+"""Codestream compression driver.
 
-A copy of grok_tpu/codestream/compress.py compress_codestream (main header,
-per-tile compression, tile-parts, TLM/PPM/PLM, EOC) that differs only in
-the tile processor: the port's TileCompressor, with its batched device
-analysis over the uniform tiles.  Every helper and marker writer is
-grok_tpu's own.  The strip-reader and file-sink variants are not ported
-yet, and neither is the multi-device mesh (ROADMAP A13).
+Parity: CodeStreamCompress (SURVEY.md §2.1 "Codestream compress",
+src/lib/core/codestream/CodeStreamCompress.cpp [P]): writes the main header
+(SOC SIZ [CAP] COD [COC] QCD [QCC] [POC] [COM] [RGN]), drives per-tile
+compression, emits tile-parts (SOT..SOD..data), rewrites TLM at the end,
+terminates with EOC.
+
+grok_tpu's driver with the port's tile processor: with a device, all
+uniform full-size tiles go through one batched device analysis.  The
+strip-reader and file-sink variants are not ported yet (ROADMAP A14), and
+neither is the multi-device mesh (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+import logging
+import math
+
 import numpy as np
 import torch
 
-from grok_tpu.codestream import markers as mk
-from grok_tpu.codestream.compress import (_layer_targets,
-                                          _predict_tlm_entries,
-                                          _split_tile_parts,
-                                          setup_coding_params)
-from grok_tpu.errors import ParamError
-from grok_tpu.image import GrkImage
-from grok_tpu.params import CompressParams
-from grok_tpu.tile.geometry import Rect, tile_rect
-from grok_tpu.tile.processor import acquire_tile, release_tile
-from grok_tpu.transform import mct as mct_mod
+from ..errors import ParamError
+from ..image import GrkImage
+from ..params import (
+    CblkStyle,
+    CodingParams,
+    CompressParams,
+    Profile,
+    QuantStyle,
+    TileCodingParams,
+    TileComponentCodingParams,
+)
+from ..tile.geometry import Rect, tile_rect
+from ..tile.processor import (TileCompressor, acquire_tile, host_backend,
+                              release_tile, run_transforms_device_batched)
+from ..transform import mct as mct_mod
+from ..transform import quant as quant_mod
+from . import markers as mk
 
-from ..tile.processor import (TileCompressor, host_backend,
-                              run_transforms_device_batched)
+log = logging.getLogger("grok_tpu_torch")
+
+
+def setup_coding_params(image: GrkImage, p: CompressParams) -> CodingParams:
+    from . import profiles
+
+    profiles.apply_profile(p, image)
+    p.validate()
+    cp = CodingParams()
+    cp.rsiz = int(p.profile)
+    if Profile.BC_SINGLE.value <= int(p.profile) <= Profile.IMF_8K_R.value:
+        # Broadcast/IMF: mainlevel in Rsiz bits 0-3, IMF sublevel bits 4-7
+        cp.rsiz |= (p.profile_level & 0xF)
+        if int(p.profile) >= Profile.IMF_2K.value:
+            cp.rsiz |= (p.profile_sublevel & 0xF) << 4
+    if p.ht:
+        cp.rsiz |= int(Profile.PART15)
+        cp.ht = True
+        cp.ht_mixed = p.ht_mixed
+    if p.tile_size:
+        cp.t_width, cp.t_height = p.tile_size
+        cp.tx0, cp.ty0 = p.tile_offset
+        # ISO 15444-1: XTOsiz <= XOsiz and XTOsiz + XTsiz > XOsiz so the
+        # tile grid covers the image starting at the first tile
+        if cp.tx0 > image.x0 or cp.ty0 > image.y0:
+            raise ParamError(
+                f"tile offset ({cp.tx0},{cp.ty0}) must not exceed the "
+                f"image offset ({image.x0},{image.y0})")
+        if cp.tx0 + cp.t_width <= image.x0 or \
+                cp.ty0 + cp.t_height <= image.y0:
+            raise ParamError("first tile does not intersect the image")
+    else:
+        cp.tx0, cp.ty0 = 0, 0
+        cp.t_width = image.x1 - cp.tx0
+        cp.t_height = image.y1 - cp.ty0
+    cp.t_grid_w = -(-(image.x1 - cp.tx0) // cp.t_width)
+    cp.t_grid_h = -(-(image.y1 - cp.ty0) // cp.t_height)
+
+    numlayers = p.numlayers
+    if p.layer_rates:
+        numlayers = len(p.layer_rates)
+    elif p.layer_psnr:
+        numlayers = len(p.layer_psnr)
+
+    mct = p.mct
+    if p.custom_mct is not None:
+        mct = 2
+    elif mct is None:
+        mct = 1 if image.numcomps >= 3 and all(
+            c.dx == image.comps[0].dx and c.dy == image.comps[0].dy
+            and c.prec == image.comps[0].prec
+            for c in image.comps[:3]) else 0
+    reversible = not p.irreversible
+    guard = p.num_guard_bits if p.num_guard_bits is not None else 2
+
+    # Adaptive base step for byte-targeted irreversible encodes: at
+    # ratios >= ~8:1 the PCRD truncation point sits far above the
+    # quantizer floor, so the ecosystem-default fine steps only generate
+    # deep coding passes the cap immediately discards (measured: PSNR at
+    # 10:1..80:1 is IDENTICAL with 2-4x coarser steps, while Tier-1 does
+    # ~2x the work with fine ones).  Explicit quant_step/quant_style and
+    # -q quality targets keep the fine default untouched.
+    quant_step = p.quant_step
+    if (p.irreversible and quant_step == 0.0 and p.quant_style is None
+            and not p.layer_psnr):
+        min_ratio = 0.0
+        if p.layer_rates:
+            # a rate <= 1.0 means "no truncation" (params.py): that
+            # layer's quality is bounded by the quantizer alone, so the
+            # fine default must stay
+            if all(r > 1.0 for r in p.layer_rates):
+                min_ratio = min(p.layer_rates)
+        elif p.max_cs_size > 0:
+            # same raw-size definition as the rate-control budget below
+            # (actual component plane shapes, not image-rect division)
+            raw = sum(c.h * c.w * c.prec for c in image.comps) / 8.0
+            min_ratio = raw / p.max_cs_size
+        if min_ratio >= 24.0:
+            quant_step = 4.0
+        elif min_ratio >= 6.0:
+            quant_step = 2.0  # 6:1 measured identical, 8:1 within 0.02 dB
+
+    for tidx in range(cp.numtiles):
+        tcp = TileCodingParams()
+        tcp.prog_order = p.prog_order
+        tcp.numlayers = numlayers
+        tcp.mct = mct
+        tcp.progression_changes = list(
+            p.tile_progression_changes.get(tidx, p.progression_changes)
+            if getattr(p, "tile_progression_changes", None)
+            else p.progression_changes)
+        if mct == 2:
+            m = np.asarray(p.custom_mct, dtype=np.float64)
+            if m.ndim != 2 or m.shape[0] != m.shape[1] \
+                    or m.shape[0] > len(image.comps):
+                raise ParamError(
+                    f"custom MCT matrix must be square with dimension <= "
+                    f"number of components, got shape {m.shape}")
+            if abs(np.linalg.det(m)) < 1e-12:
+                raise ParamError("custom MCT matrix is singular "
+                                 "(not invertible)")
+            tcp.mct_matrix = m
+        for compno, comp in enumerate(image.comps):
+            tccp = TileComponentCodingParams()
+            tccp.numresolutions = p.numresolution
+            tccp.cblkw = int(math.log2(p.cblk_width))
+            tccp.cblkh = int(math.log2(p.cblk_height))
+            if p.cblk_style is None:
+                # auto policy (see CompressParams.cblk_style): bypass for
+                # throughput unless ROI (oracle bypass+ROI asymmetry) or
+                # PSNR targeting (exact R-D) is requested
+                style = (CblkStyle.NONE
+                         if (p.roi_shift and p.roi_comp != -1) or p.layer_psnr
+                         else CblkStyle.LAZY)
+            else:
+                style = p.cblk_style
+            if style & ~0x3F:
+                # bits beyond the six defined switches corrupt the COD
+                # style byte (0x40 is the Part-15 HT flag)
+                raise ParamError(
+                    f"invalid code-block style 0x{style:02X}: only "
+                    f"bits 0x01..0x20 (LAZY RESET TERMALL VSC PTERM "
+                    f"SEGSYM) are defined")
+            tccp.cblk_style = style
+            tccp.qmfbid = 1 if reversible else 0
+            tccp.num_guard_bits = guard
+            tccp.ht = p.ht
+            if p.precincts:
+                # CLI order: highest resolution first; replicate last entry
+                n = tccp.numresolutions
+                prc = list(p.precincts)
+                while len(prc) < n:
+                    prc.append(prc[-1])
+                prc = prc[:n]
+                # signaled low-res-first; auto-halve like the oracle does?
+                # the reference maps CLI entries highest-res-first:
+                tccp.prcw = [int(math.log2(prc[n - 1 - r][0]))
+                             for r in range(n)]
+                tccp.prch = [int(math.log2(prc[n - 1 - r][1]))
+                             for r in range(n)]
+            else:
+                tccp.prcw = [15] * tccp.numresolutions
+                tccp.prch = [15] * tccp.numresolutions
+            tccp.qnt_style = (QuantStyle.NONE if reversible
+                              else QuantStyle.SCALAR_EXPOUNDED)
+            if p.quant_style is not None:
+                tccp.qnt_style = p.quant_style
+            tccp.stepsizes = quant_mod.default_stepsizes(
+                comp.prec, tccp.numresolutions, reversible, quant_step)
+            if (p.roi_comp == compno or p.roi_comp == -2) and p.roi_shift:
+                # upshifted magnitudes must stay inside the int32 T1
+                # domain (doubled-domain decode adds one more bit): bound
+                # by the ACTUAL signaled band depth Mb = guard + expn - 1,
+                # which for irreversible steps exceeds prec + gain by
+                # ceil(log2(norm_b))
+                max_expn = max(ss.expn for ss in tccp.stepsizes)
+                mb = max(0, guard + max_expn - 1)
+                if mb + p.roi_shift + 1 > 31:
+                    raise ParamError(
+                        f"roi_shift {p.roi_shift} overflows the 32-bit "
+                        f"coefficient range (band depth {mb} bits at "
+                        f"precision {comp.prec})")
+            if p.roi_comp == compno or p.roi_comp == -2:
+                # max-shift ROI: QCD/QCC stay untouched; both encoder and
+                # decoder extend M_b by roi_shift internally (the decoder
+                # learns the shift from the RGN marker) — verified against
+                # the oracle decoder in tests/test_features.py.
+                tccp.roi_shift = p.roi_shift
+            tcp.tccps.append(tccp)
+        cp.tcps.append(tcp)
+    return cp
 
 
 def compress_codestream(image: GrkImage, p: CompressParams,
@@ -81,7 +263,7 @@ def compress_codestream(image: GrkImage, p: CompressParams,
     if p.progression_changes \
             and not getattr(p, "tile_progression_changes", None):
         # codestream-wide POC; with per-tile overrides every tile gets a
-        # tile-header POC instead (see grok_tpu's compress_codestream)
+        # tile-header POC instead
         out += mk.write_poc(p.progression_changes, image.numcomps)
     for compno in range(image.numcomps):
         if tcp0.tccps[compno].roi_shift:
@@ -108,7 +290,7 @@ def compress_codestream(image: GrkImage, p: CompressParams,
     raw_bytes = sum(c.h * c.w * c.prec for c in image.comps) / 8.0
     p._raw_bytes_total = raw_bytes  # for -W per-tile share scaling
     # -W is a TOTAL codestream cap: subtract the main-header bytes written
-    # so far plus EOC and the TLM index (grok_tpu's budget, unchanged)
+    # so far plus EOC and the TLM index
     p._cap_overhead = (len(out) + 2
                        + (len(mk.write_tlm(
                               0, _predict_tlm_entries(cp, p, image))) + 6
@@ -159,7 +341,7 @@ def compress_codestream(image: GrkImage, p: CompressParams,
 
     if (p.plt or p.plm) and p.max_cs_size:
         # reserve the packet-length indexes' footprint in the byte budget
-        # (grok_tpu's bound: it cannot be overshot by any packet sizes)
+        # (a bound that no packet sizes can overshoot)
         npkts = sum(res.pw * res.ph
                     for (_ti, _tcpx, _tr, tcx) in compressors
                     for comp in tcx.tile.comps
@@ -260,3 +442,92 @@ def compress_codestream(image: GrkImage, p: CompressParams,
     for (_tidx, _tcp, _trect, tc) in compressors:
         release_tile(tc.tile)  # geometry tree back to the pool, scrubbed
     return bytes(out)
+
+
+def _tlm_parts_per_tile(cp, p, image) -> int:
+    """Upper bound on tile-parts per tile.  Without -u (or with PPT,
+    which forces single tile-parts) every tile emits exactly one
+    tile-part.  With -u the number of runs of the split key equals the
+    product of the loop sizes at or outside that key in the progression
+    order; a prefix containing the position loop (e.g. -u R under CPRL,
+    the IMF default) is bounded only by _split_tile_parts' 255-group
+    merge, as is any POC-reordered tile."""
+    if p.ppt or not p.new_tile_part_progression:
+        return 1
+    if any(tcp.progression_changes for tcp in cp.tcps):
+        return 255
+    sizes = {"L": max(t.numlayers for t in cp.tcps),
+             "R": p.numresolution,
+             "C": max(1, image.numcomps)}
+    per = 1
+    for prog in {t.prog_order for t in cp.tcps}:
+        order = prog.name  # e.g. "LRCP"
+        prefix = order[:order.index(p.new_tile_part_progression) + 1]
+        if "P" in prefix:
+            return 255
+        n = 1
+        for ch in prefix:
+            n *= sizes[ch]
+        per = max(per, n)
+    return min(255, per)
+
+
+def _predict_tlm_entries(cp, p, image) -> list:
+    """Upper-bound TLM entry list for the -W cap budget."""
+    per = _tlm_parts_per_tile(cp, p, image)
+    return [(t, 0) for t in range(cp.numtiles) for _ in range(per)]
+
+
+def _split_tile_parts(coords, mode: str | None):
+    """Packet-index ranges [(start, end), ...] for tile-part generation:
+    a new tile-part starts at each change of resolution ('R'), layer ('L')
+    or component ('C') in progression order."""
+    n = len(coords)
+    if not mode or n == 0:
+        return [(0, n)]
+    key = {"R": lambda c: c.resno, "L": lambda c: c.layno,
+           "C": lambda c: c.compno}[mode]
+    groups = []
+    start = 0
+    for i in range(1, n):
+        if key(coords[i]) != key(coords[i - 1]):
+            groups.append((start, i))
+            start = i
+    groups.append((start, n))
+    # TNsot is a byte: merge overflow groups
+    while len(groups) > 255:
+        a = groups.pop()
+        b = groups.pop()
+        groups.append((b[0], a[1]))
+    return groups
+
+
+def _layer_targets(p: CompressParams, numlayers: int, raw_bytes: float):
+    if p.layer_rates:
+        # reference semantics: ratios <= 1 mean "no truncation" (lossless
+        # cap) rather than a literal byte budget
+        targets = []
+        for r in p.layer_rates:
+            if r <= 1.0:
+                targets.append(None)
+            else:
+                targets.append(raw_bytes / r)
+        return targets
+    if p.layer_psnr:
+        # quality mode: handled by assign_layers_quality (distortion
+        # thresholds calibrated against measured reconstruction error)
+        return [None] * numlayers
+    if p.max_cs_size:
+        # -W is a TOTAL codestream cap: scale each tile's share of the
+        # packet-byte budget (total minus the measured main-header +
+        # framing overhead) by its area fraction (tile_frac folded into
+        # raw_bytes by the caller)
+        budget = max(64.0, p.max_cs_size
+                     - getattr(p, "_cap_overhead", 64.0))
+        share = budget * (raw_bytes / max(1.0, p._raw_bytes_total)
+                          if getattr(p, "_raw_bytes_total", 0)
+                          else 1.0)
+        share = max(64.0, share)
+        step = share / numlayers
+        return [step * (i + 1) for i in range(numlayers - 1)] + [share]
+    return [None] * numlayers

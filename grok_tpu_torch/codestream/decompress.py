@@ -1,44 +1,646 @@
-"""Codestream decoder of the port.
+"""Codestream decompression driver.
 
-grok_tpu's CodestreamDecoder with its two tile-decoding hooks overridden,
-the two places that construct a TileDecompressor: the batched device
-synthesis over uniform tiles and the per-tile decode.  Both build the
-port's TileDecompressor, whose synthesis runs on `device`.  Parsing and
-decode() itself are inherited.  The multi-device mesh is not ported yet.
+Parity: CodeStreamDecompress (SURVEY.md §2.1 "Codestream decompress",
+src/lib/core/codestream/CodeStreamDecompress*.cpp [P]): marker-driven main
+header parse into CodingParams, SOT/SOD tile-part scan, per-tile header
+overrides (COD/COC/QCD/QCC/POC/RGN), PPM/PPT packed headers, tolerant
+"non-strict" mode for truncated/corrupt streams, TLM-based tile seeking.
+
+With a `device`, the synthesis of eligible tiles runs there (the port's
+tile processor); with several uniform tiles, in one batched call.  The
+multi-device mesh (ROADMAP A13) and the strip decode with its deferred
+device planes (ROADMAP A14) are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import struct
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
-from grok_tpu.codestream.decompress import CodestreamDecoder as _RefDecoder
-from grok_tpu.errors import CodestreamError
-from grok_tpu.params import DecompressParams
-from grok_tpu.tile.geometry import Rect, tile_rect
-from grok_tpu.tile.processor import acquire_tile, release_tile
+from ..errors import CodestreamError
+from ..image import ColorSpace, GrkImage, ImageComponent
+from ..params import CodingParams, DecompressParams, TileCodingParams, \
+    TileComponentCodingParams
+from ..tile.geometry import Rect, tile_rect
+from ..tile.processor import (TileDecompressor, acquire_tile,
+                              host_backend, reconstruct_device_batched,
+                              release_tile)
+from . import markers as mk
 
-from ..tile.processor import (TileDecompressor, host_backend,
-                              reconstruct_device_batched)
-
-log = logging.getLogger("grok_tpu")
+log = logging.getLogger("grok_tpu_torch")
 
 
-class CodestreamDecoder(_RefDecoder):
-    """`device` is where the synthesis of eligible tiles runs when the
-    decode asks for backend="device" (None: on the host)."""
+@dataclass
+class TilePartData:
+    tile_index: int
+    data: bytes
+
+
+@dataclass
+class HeaderInfo:
+    siz: mk.SizInfo = None
+    cp: CodingParams = None
+    image: GrkImage = None
+    comments: list[str] = field(default_factory=list)
+    cap: dict | None = None
+    marker_log: list[tuple[str, int, int]] = field(default_factory=list)
+    sop: bool = False
+    eph: bool = False
+    main_poc: list = field(default_factory=list)
+    roi_shifts: dict = field(default_factory=dict)
+    crg: list | None = None  # per-component registration offsets
+
+    def reduced_dims(self, reduce: int = 0) -> tuple[int, int, int]:
+        """(width, height, clamped_reduce) of the decoded canvas at a
+        resolution reduction — the ONE place that owns both the clamp
+        (main-header minimum across components) and the canvas-grid
+        halving ceil(x1/2^r) - ceil(x0/2^r), which differs from
+        ceil((x1-x0)/2^r) for offset images.  Consumers: decode(), the
+        decoded canvas sizing."""
+        max_reduce = min(t.numresolutions
+                         for t in self.cp.tcps[0].tccps) - 1
+        r = min(reduce, max_reduce)
+        div = 1 << r
+        img = self.image
+        w = -(-img.x1 // div) - -(-img.x0 // div)
+        h = -(-img.y1 // div) - -(-img.y0 // div)
+        return w, h, r
+
+
+class CodestreamDecoder:
+    """Parses a raw .j2k codestream and decodes tiles on demand.  `device`
+    is where the synthesis of eligible tiles runs when the decode asks for
+    backend="device" (None: on the host)."""
 
     def __init__(self, data: bytes, strict: bool = False,
                  device: torch.device | None = None):
-        super().__init__(data, strict=strict)
         self.device = device
+        self.data = data
+        self.strict = strict
+        self.hi = HeaderInfo()
+        self.tile_parts: dict[int, list[bytes]] = {}
+        self.tile_plt: dict[int, bytearray] = {}  # concatenated PLT varints
+        self.tile_plt_z: dict[int, int | None] = {}  # next expected Zplt
+        self.tile_tcps: dict[int, TileCodingParams] = {}
+        self.tile_ppt: dict[int, bytearray] = {}
+        self.tile_ppt_segs: dict[int, dict] = {}  # Zppt -> payload bytes
+        self.tp_sequence: list[int] = []  # tile index per tile-part, in order
+        self._plm_segs: dict[int, bytes] = {}  # Zplm -> payload (main hdr)
+        # TLM fast path: tile-part spans discovered from the TLM index so
+        # tile-part headers/bodies are only touched when a tile is decoded
+        # (SURVEY.md §2.1 "Packet-length / TLM caches": seek directly)
+        self._lazy_spans: dict[int, list[tuple[int, int]]] = {}
+        self._tlm_segs: dict[int, list] = {}
+        # per-tile SOP/EPH overrides from tile-part COD markers
+        self._tile_sop_eph: dict[int, tuple[bool, bool]] = {}
+        self._parsed = False
 
-    def decode(self, p: DecompressParams, cache=None):
+    # ------------------------------------------------------------- parsing
+
+    def _stream_id(self):
+        """Cheap digest identifying this codestream, so TileCache entries
+        from one stream never serve another (the public API invites
+        reusing one cache across decompress() calls)."""
+        sid = getattr(self, "_sid", None)
+        if sid is None:
+            import hashlib
+            # full-buffer digest: equal-length streams that differ only in
+            # interior tile bytes must not collide (one decode dwarfs the
+            # cost of hashing the whole buffer once)
+            h = hashlib.blake2b(self.data, digest_size=16)
+            sid = self._sid = (len(self.data), h.digest())
+        return sid
+
+    def _err(self, msg: str):
+        if self.strict:
+            raise CodestreamError(msg)
+        log.warning("codestream: %s", msg)
+
+    def parse(self) -> HeaderInfo:
+        d = self.data
+        if len(d) < 4 or struct.unpack(">H", d[0:2])[0] != mk.SOC:
+            raise CodestreamError("missing SOC marker")
+        pos = 2
+        hi = self.hi
+        cp = None
+        tcp_template = None
+        while pos + 2 <= len(d):
+            code = struct.unpack(">H", d[pos:pos + 2])[0]
+            if code == mk.EOC:
+                hi.marker_log.append(("EOC", pos, 2))
+                pos += 2
+                break
+            if code == mk.SOT:
+                if (not self.tile_parts and not self._lazy_spans
+                        and cp is not None and getattr(cp, "tlm", None)
+                        and cp.ppm_data is None):
+                    end = self._tlm_spans(pos, cp.tlm)
+                    if end is not None:
+                        pos = end
+                        continue
+                pos = self._parse_tile_part(pos)
+                continue
+            if pos + 4 > len(d):
+                self._err("truncated marker segment")
+                break
+            seglen = struct.unpack(">H", d[pos + 2:pos + 4])[0]
+            payload = d[pos + 4:pos + 2 + seglen]
+            name = mk.MARKER_NAMES.get(code, f"0x{code:04X}")
+            hi.marker_log.append((name, pos, seglen + 2))
+            try:
+                self._dispatch_main_marker(code, payload, cp,
+                                           tcp_template, hi)
+                if code == mk.SIZ and hi.cp is not None:
+                    cp = hi.cp
+                    tcp_template = cp.tcps[0]
+            except (struct.error, IndexError, ValueError, KeyError) as e:
+                self._err(f"malformed {name} marker: {e}")
+            pos += 2 + seglen
+        self.hi.cp = cp
+        if cp is None or hi.siz is None:
+            raise CodestreamError("codestream has no valid SIZ marker")
+        self.hi.image = self._build_image_template()
+        self._parsed = True
+        return self.hi
+
+    def _dispatch_main_marker(self, code, payload, cp, tcp_template, hi):
+        if code == mk.SIZ:
+            hi.siz = mk.read_siz(payload)
+            hi.cp = self._init_cp(hi.siz)
+            return
+        if cp is None:
+            self._err("marker before SIZ ignored")
+            return
+        if code == mk.CAP:
+            hi.cap = mk.read_cap(payload)
+            # Ccap15 set bits: 3 = MIXED (per-codeblock MQ/HT choice).
+            # Only Part 15's own Ccap entry counts — other capability
+            # bits' values must not enable the per-block coder bit.
+            c15 = hi.cap.get("parts", {}).get(15)
+            if c15 is not None and (c15 >> 14) == 3:
+                cp.ht_mixed = True
+        elif code == mk.COD:
+            sop, eph = mk.read_cod(payload, tcp_template)
+            hi.sop, hi.eph = sop, eph
+            self._sync_tcps(cp, tcp_template)
+        elif code == mk.COC:
+            mk.read_coc(payload, tcp_template, len(hi.siz.comps))
+            self._sync_tcps(cp, tcp_template)
+        elif code == mk.QCD:
+            mk.read_qcd(payload, tcp_template)
+            self._sync_tcps(cp, tcp_template)
+        elif code == mk.QCC:
+            mk.read_qcc(payload, tcp_template, len(hi.siz.comps))
+            self._sync_tcps(cp, tcp_template)
+        elif code == mk.POC:
+            pocs = mk.read_poc(payload, len(hi.siz.comps))
+            hi.main_poc = pocs
+            for t in cp.tcps:
+                t.progression_changes = list(pocs)
+        elif code == mk.RGN:
+            compno, shift = mk.read_rgn(payload, len(hi.siz.comps))
+            if compno >= len(hi.siz.comps):
+                raise ValueError(f"RGN component {compno} out of range")
+            hi.roi_shifts[compno] = shift
+            for t in cp.tcps:
+                t.tccps[compno].roi_shift = shift
+        elif code == mk.COM:
+            hi.comments.append(mk.read_com(payload))
+        elif code == mk.TLM:
+            # accumulate across multi-segment TLM indexes in Ztlm order
+            ztlm, entries = mk.read_tlm(payload)
+            self._tlm_segs[ztlm] = self._tlm_segs.get(ztlm, []) + entries
+            cp.tlm = [e for z in sorted(self._tlm_segs)
+                      for e in self._tlm_segs[z]]
+        elif code == mk.PPM:
+            # spec orders packed-header content by Zppm, not marker
+            # position (mirror of the TLM handling above)
+            segs = getattr(self, "_ppm_segs", None)
+            if segs is None:
+                segs = self._ppm_segs = {}
+            zppm = payload[0]
+            segs[zppm] = segs.get(zppm, b"") + payload[1:]
+            cp.ppm_data = b"".join(segs[z] for z in sorted(segs))
+        elif code == mk.MCT:
+            idx, at, et, arr = mk.read_mct(payload)
+            for t in cp.tcps:
+                t.mct_records[idx] = (at, et, arr)
+            self._resolve_mct(cp)
+        elif code == mk.MCC:
+            rec = mk.read_mcc(payload)
+            for t in cp.tcps:
+                t.mcc_records[rec[0]] = rec
+            self._resolve_mct(cp)
+        elif code == mk.MCO:
+            order = mk.read_mco(payload)
+            for t in cp.tcps:
+                t.mco_order = order
+            self._resolve_mct(cp)
+        elif code == mk.PLM:
+            # main-header packet-length index: feeds the same O(region)
+            # packet-skip machinery PLT does when a tile has no PLT
+            self._plm_segs[payload[0]] = payload[1:]
+        elif code == mk.CRG:
+            hi.crg = mk.read_crg(payload)
+        elif code in (mk.PRF, mk.CPF):
+            pass  # informative markers
+        else:
+            self._err(f"unknown marker 0x{code:04X} in main header")
+
+    def _resolve_mct(self, cp: CodingParams):
+        """Combine parsed MCT/MCC/MCO into the tile's decoding matrix and
+        DC offsets once all three pieces are present (Part-2 custom MCT)."""
+        import numpy as np
+
+        for t in cp.tcps:
+            if not t.mco_order or not t.mcc_records:
+                continue
+            mcc = t.mcc_records.get(t.mco_order[0])
+            if mcc is None:
+                continue
+            _, inputs, _, deco_idx, off_idx, _ = mcc
+            deco = t.mct_records.get(deco_idx)
+            if deco is None or deco[0] != mk.MCT_ARRAY_DECORRELATION:
+                continue
+            n = len(inputs) or int(round(len(deco[2]) ** 0.5))
+            t.mct_dec_matrix = deco[2][:n * n].reshape(n, n)
+            off = t.mct_records.get(off_idx)
+            if off is not None and off[0] == mk.MCT_ARRAY_OFFSET:
+                t.mct_offsets = np.round(off[2][:n]).astype(np.int64)
+
+    MAX_DECODE_PIXELS = 1 << 32  # 4 Gpx canvas sanity cap: fuzzed SIZ
+    # values must fail with a codec error, not an attempted TiB allocation
+
+    def _init_cp(self, siz: mk.SizInfo) -> CodingParams:
+        if not siz.comps or siz.xtsiz <= 0 or siz.ytsiz <= 0 \
+                or siz.xsiz <= siz.xosiz or siz.ysiz <= siz.yosiz:
+            raise ValueError("invalid SIZ geometry")
+        if (siz.xsiz - siz.xosiz) * (siz.ysiz - siz.yosiz) \
+                > self.MAX_DECODE_PIXELS:
+            raise ValueError(
+                f"SIZ canvas {siz.xsiz - siz.xosiz}x{siz.ysiz - siz.yosiz} "
+                f"exceeds the decoder sanity cap")
+        for (prec, _, dx, dy) in siz.comps:
+            # Part 1 allows Ssiz precision 1..38; spec subsampling 1..255
+            if not 1 <= prec <= 38 or not 1 <= dx <= 255 \
+                    or not 1 <= dy <= 255:
+                raise ValueError(
+                    f"invalid SIZ component (prec={prec} dx={dx} dy={dy})")
+            if prec > 31:
+                # legal to SIGNAL (Ssiz <= 38) but outside our int32
+                # sample pipeline: fail cleanly instead of overflowing
+                # the DC-unshift bounds downstream (fuzz-found)
+                raise ValueError(
+                    f"unsupported component precision {prec} (> 31)")
+        cp = CodingParams()
+        cp.rsiz = siz.rsiz
+        cp.tx0, cp.ty0 = siz.xtosiz, siz.ytosiz
+        cp.t_width, cp.t_height = siz.xtsiz, siz.ytsiz
+        cp.t_grid_w = -(-(siz.xsiz - siz.xtosiz) // siz.xtsiz)
+        cp.t_grid_h = -(-(siz.ysiz - siz.ytosiz) // siz.ytsiz)
+        # ISO 15444-1 A.5.1: at most 65535 tiles.  A corrupt SIZ with a
+        # tiny tile size would otherwise make every per-tile loop O(10^8)
+        # (fuzz-found hang), so this is a hard error even in tolerant mode.
+        if cp.t_grid_w * cp.t_grid_h > 65535:
+            raise ValueError(
+                f"SIZ signals {cp.t_grid_w}x{cp.t_grid_h} tiles "
+                f"(> 65535, ISO A.5.1)")
+        tcp = TileCodingParams()
+        for _ in siz.comps:
+            tcp.tccps.append(TileComponentCodingParams())
+        cp.tcps = [tcp]
+        return cp
+
+    def _sync_tcps(self, cp: CodingParams, template: TileCodingParams):
+        cp.tcps = [template]
+
+    def _tlm_spans(self, start: int, tlm) -> int | None:
+        """Validate the TLM index against the stream and record per-tile
+        tile-part spans WITHOUT scanning their headers or copying bodies.
+        Returns the position after the last tile-part, or None when the
+        index is inconsistent (caller falls back to the sequential walk).
+        Not used when PPM is present (PPM distribution needs the full
+        tile-part sequence)."""
+        d = self.data
+        pos = start
+        spans: dict[int, list[tuple[int, int]]] = {}
+        for (t, ln) in tlm:
+            if ln < 14 or pos + 12 > len(d) or pos + ln > len(d):
+                return None
+            if struct.unpack(">H", bytes(d[pos:pos + 2]))[0] != mk.SOT:
+                return None
+            isot = struct.unpack(">H", bytes(d[pos + 4:pos + 6]))[0]
+            if t is not None and isot != t:
+                return None
+            spans.setdefault(isot, []).append((pos, pos + ln))
+            pos += ln
+        self._lazy_spans = spans
+        return pos
+
+    def _tile_pkt_lens(self, tidx: int) -> list[int] | None:
+        """Per-packet byte lengths from the tile's PLT index (None when no
+        PLT was signaled).  Lets decode_packets skip whole packets outside
+        the decode window / reduced resolutions / discarded layers without
+        parsing their headers — the O(region) random-access path."""
+        buf = self.tile_plt.get(tidx)
+        if buf:
+            return mk.read_plt(b"\x00" + bytes(buf))
+        if self._plm_segs:
+            idx = self._plm_index()
+            if idx is not None:
+                return idx.get(tidx) or None
+        return None
+
+    def _plm_index(self):
+        """Partition the PLM main-header index into per-tile packet-length
+        lists.  PLM is ordered by tile-PART: the flat varint stream is
+        split by matching each tile-part's cumulative packet bytes against
+        its body length (known once the tile-part headers are parsed —
+        cheap; the per-packet header decode is what the index avoids)."""
+        cached = getattr(self, "_plm_idx_cache", "unset")
+        if cached != "unset":
+            return cached
+        # materialize every tile-part so tp_sequence/body lengths exist
+        for t in list(self._lazy_spans.keys()):
+            self._ensure_tile(t)
+        all_seg = b"".join(self._plm_segs[z]
+                           for z in sorted(self._plm_segs))
+        flat = bytearray()
+        pos = 0
+        while pos < len(all_seg):
+            n = all_seg[pos]
+            pos += 1
+            flat += all_seg[pos:pos + n]
+            pos += n
+        lengths = mk.read_plt(b"\x00" + bytes(flat))
+        per_tile: dict[int, list[int]] = {t: [] for t in self.tile_parts}
+        counters = {t: 0 for t in self.tile_parts}
+        li = 0
+        ok = True
+        for t in self.tp_sequence:
+            parts = self.tile_parts.get(t) or []
+            ci = counters.get(t, 0)
+            if ci >= len(parts):
+                ok = False
+                break
+            counters[t] = ci + 1
+            budget = len(parts[ci])
+            s = 0
+            while s < budget and li < len(lengths):
+                per_tile[t].append(lengths[li])
+                s += lengths[li]
+                li += 1
+            if s != budget:
+                ok = False
+                break
+        if not ok:
+            log.warning("PLM index inconsistent with tile-part bodies; "
+                        "falling back to packet-header parsing")
+        self._plm_idx_cache = per_tile if ok else None
+        return self._plm_idx_cache
+
+    def _ensure_tile(self, tidx: int) -> None:
+        """Parse the tile-parts of one tile on first use (TLM fast path)."""
+        for (s, _e) in self._lazy_spans.pop(tidx, ()):
+            self._parse_tile_part(s)
+
+    def _parse_tile_part(self, pos: int) -> int:
+        d = self.data
+        if pos + 12 > len(d):
+            self._err("truncated SOT marker")
+            return len(d)
+        seglen = struct.unpack(">H", d[pos + 2:pos + 4])[0]
+        if seglen < 10:  # Lsot is exactly 10; a shorter payload cannot
+            self._err("malformed SOT marker")  # hold Isot/Psot/TPsot/TNsot
+            return len(d)
+        isot, psot, tpsot, tnsot = mk.read_sot(d[pos + 4:pos + 2 + seglen])
+        self.hi.marker_log.append((f"SOT(t={isot},tp={tpsot})", pos, seglen + 2))
+        tp_start = pos
+        pos += 2 + seglen
+        if psot == 0:
+            psot = len(d) - tp_start  # last tile-part extends to EOC
+        tp_end = min(tp_start + psot, len(d))
+        # scan tile-part header markers until SOD
+        if self.hi.cp is None:
+            self._err("tile-part before a valid SIZ; skipped")
+            return tp_end
+        tile_tcp = self.tile_tcps.get(isot)
+        if tile_tcp is None:
+            tile_tcp = self.hi.cp.tcps[0].clone()
+            self.tile_tcps[isot] = tile_tcp
+        while pos + 2 <= tp_end:
+            code = struct.unpack(">H", d[pos:pos + 2])[0]
+            if code == mk.SOD:
+                pos += 2
+                self.tile_parts.setdefault(isot, []).append(d[pos:tp_end])
+                self.tp_sequence.append(isot)
+                return tp_end
+            if pos + 4 > tp_end:
+                self._err("truncated tile-part header")
+                return tp_end
+            seglen2 = struct.unpack(">H", d[pos + 2:pos + 4])[0]
+            payload = d[pos + 4:pos + 2 + seglen2]
+            name = mk.MARKER_NAMES.get(code, f"0x{code:04X}")
+            self.hi.marker_log.append((name, pos, seglen2 + 2))
+            try:
+                if code == mk.COD:
+                    self._tile_sop_eph[isot] = mk.read_cod(payload, tile_tcp)
+                elif code == mk.COC:
+                    mk.read_coc(payload, tile_tcp, len(self.hi.siz.comps))
+                elif code == mk.QCD:
+                    mk.read_qcd(payload, tile_tcp)
+                elif code == mk.QCC:
+                    mk.read_qcc(payload, tile_tcp, len(self.hi.siz.comps))
+                elif code == mk.POC:
+                    tile_tcp.progression_changes = mk.read_poc(
+                        payload, len(self.hi.siz.comps))
+                elif code == mk.RGN:
+                    compno, shift = mk.read_rgn(
+                        payload, len(self.hi.siz.comps))
+                    tile_tcp.tccps[compno].roi_shift = shift
+                elif code == mk.PPT:
+                    # content is ordered by Zppt, not marker position
+                    segs = self.tile_ppt_segs.setdefault(isot, {})
+                    zppt = payload[0]
+                    segs[zppt] = segs.get(zppt, b"") + payload[1:]
+                    buf = self.tile_ppt.setdefault(isot, bytearray())
+                    buf.clear()
+                    for z in sorted(segs):
+                        buf += segs[z]
+                elif code == mk.PLT:
+                    # packet-length index: drives O(region) packet skipping
+                    # (SURVEY.md §3.3 "PLT ... make this O(region)").
+                    # Varint bytes are concatenated across segments (a
+                    # length may straddle a Zplt boundary in other
+                    # encoders' streams), so segment ORDER matters: an
+                    # out-of-sequence Zplt poisons the tile's index and we
+                    # fall back to full packet-header parsing.
+                    zplt = payload[0]
+                    expect = self.tile_plt_z.get(isot, 0)
+                    if expect is None:
+                        pass  # index already dropped for this tile
+                    elif zplt != expect:
+                        log.warning(
+                            "PLT Zplt %d out of sequence (expected %d) in "
+                            "tile %d; dropping its packet-length index",
+                            zplt, expect, isot)
+                        self.tile_plt.pop(isot, None)
+                        self.tile_plt_z[isot] = None
+                    else:
+                        self.tile_plt_z[isot] = expect + 1
+                        self.tile_plt.setdefault(isot, bytearray()).extend(
+                            payload[1:])
+                elif code == mk.COM:
+                    pass
+                else:
+                    self._err(
+                        f"unknown marker 0x{code:04X} in tile-part header")
+            except (struct.error, IndexError, ValueError, KeyError) as e:
+                self._err(f"malformed {name} in tile-part header: {e}")
+            pos += 2 + seglen2
+        self._err("tile-part without SOD")
+        return tp_end
+
+    def _build_image_template(self) -> GrkImage:
+        siz = self.hi.siz
+        img = GrkImage(x0=siz.xosiz, y0=siz.yosiz, x1=siz.xsiz, y1=siz.ysiz)
+        for (prec, sgnd, dx, dy) in siz.comps:
+            c = ImageComponent(dx=dx, dy=dy, prec=prec, sgnd=sgnd)
+            c.x0 = -(-siz.xosiz // dx)
+            c.y0 = -(-siz.yosiz // dy)
+            c.w = -(-siz.xsiz // dx) - c.x0
+            c.h = -(-siz.ysiz // dy) - c.y0
+            img.comps.append(c)
+        n = len(siz.comps)
+        img.color_space = (ColorSpace.SRGB if n >= 3 else ColorSpace.GRAY)
+        return img
+
+    # ------------------------------------------------------------- decoding
+
+    def decode(self, p: DecompressParams, cache=None) -> GrkImage:
         if p.mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet: ROADMAP A13")
-        return super().decode(p, cache=cache)
+        if not self._parsed:
+            self.parse()
+        hi = self.hi
+        cp = hi.cp
+        img = self._build_image_template()
+        _, _, reduce_ = hi.reduced_dims(p.reduce)
+        if reduce_ != p.reduce:
+            self._err(f"reduce={p.reduce} exceeds available resolutions; "
+                      f"clamping to {reduce_}")
+
+        img_rect = Rect(hi.siz.xosiz, hi.siz.yosiz, hi.siz.xsiz, hi.siz.ysiz)
+        win = Rect(*p.window) if p.window else None
+
+        # allocate reduced-size component planes; with a decode window the
+        # canvas covers only the window (O(window) memory end to end)
+        div = 1 << reduce_
+        canvas_origin = []  # reduced-grid (ry0, rx0) per component
+        shapes = []
+        for c in img.comps:
+            if win is not None:
+                wx0 = max(-(-win.x0 // c.dx), c.x0)
+                wy0 = max(-(-win.y0 // c.dy), c.y0)
+                wx1 = min(-(-win.x1 // c.dx), c.x0 + c.w)
+                wy1 = min(-(-win.y1 // c.dy), c.y0 + c.h)
+            else:
+                wx0, wy0 = c.x0, c.y0
+                wx1, wy1 = c.x0 + c.w, c.y0 + c.h
+            rx0 = -(-wx0 // div)
+            ry0 = -(-wy0 // div)
+            rx1 = -(-wx1 // div)
+            ry1 = -(-wy1 // div)
+            shapes.append((max(0, ry1 - ry0), max(0, rx1 - rx0)))
+            canvas_origin.append((ry0, rx0))
+        # refuse BEFORE allocating: output pixels = the largest
+        # component plane (so an RGB image counts its dimensions once)
+        self._check_pixel_budget(
+            max((h0 * w0 for (h0, w0) in shapes), default=0), p)
+        try:
+            for c, shape in zip(img.comps, shapes):
+                c.data = np.zeros(shape, dtype=np.int32)
+        except MemoryError:
+            raise CodestreamError(
+                "image too large to allocate for decode") from None
+
+        self._distribute_ppm()
+        tiles = range(cp.numtiles)
+        if p.tile_index is not None:
+            tiles = [p.tile_index]
+
+        batched = {}
+        # reduce/window always fail per-tile device eligibility later, so
+        # gate here before paying the per-tile Tier-1 work twice
+        if p.backend == "device" and cp.numtiles > 1 \
+                and p.tile_index is None and win is None and reduce_ == 0:
+            batched = self._decode_tiles_device_batched(
+                list(tiles), p, img, reduce_)
+
+        for tidx in tiles:
+            if tidx in batched:
+                result = batched[tidx]
+            else:
+                result = self.decode_tile_planes(tidx, p, img, reduce_,
+                                                 win=win, cache=cache)
+            if result is None:
+                continue
+            planes, rects = result
+            # paste tile planes into the reduced component canvases,
+            # clipped (window-produce rects carry lifting margins)
+            for compno, (plane, rr) in enumerate(zip(planes, rects)):
+                comp = img.comps[compno]
+                ry0, rx0 = canvas_origin[compno]
+                ch, cw = comp.data.shape
+                sy0 = max(0, ry0 - rr.y0)
+                sx0 = max(0, rx0 - rr.x0)
+                dy0 = max(0, rr.y0 - ry0)
+                dx0 = max(0, rr.x0 - rx0)
+                hh = min(rr.h - sy0, ch - dy0)
+                ww = min(rr.w - sx0, cw - dx0)
+                if hh > 0 and ww > 0:
+                    comp.data[dy0:dy0 + hh, dx0:dx0 + ww] = \
+                        plane[sy0:sy0 + hh, sx0:sx0 + ww]
+        for compno, c in enumerate(img.comps):
+            c.h, c.w = c.data.shape
+            c.y0, c.x0 = canvas_origin[compno]
+        return img
+
+    def _distribute_ppm(self):
+        """PPM packed headers (SURVEY.md §2.1): the main-header stream holds
+        one Nppm-framed chunk per tile-part, in tile-part arrival order;
+        route each chunk to its tile's packed-header buffer."""
+        cp = self.hi.cp
+        if not cp.ppm_data:
+            return
+        data = cp.ppm_data
+        off = 0
+        for tidx in self.tp_sequence:
+            if off + 4 > len(data):
+                break
+            n = struct.unpack(">I", data[off:off + 4])[0]
+            off += 4
+            chunk = data[off:off + n]
+            off += n
+            self.tile_ppt.setdefault(tidx, bytearray()).extend(chunk)
+        cp.ppm_data = None  # consumed
+
+    def _check_pixel_budget(self, out_px: int, p) -> None:
+        """Refuse decodes whose output exceeds the caller's (or the
+        library's) pixel budget — pixels = samples of the largest
+        component plane, so multi-component images count their
+        dimensions once."""
+        budget = p.max_pixels or self.MAX_DECODE_PIXELS
+        if out_px > budget:
+            raise CodestreamError(
+                f"decode output {out_px} px exceeds the "
+                f"{'caller' if p.max_pixels else 'library'} pixel "
+                f"budget {budget}")
 
     def _tile_decompressor(self, tidx, tcp, tile, p, img, reduce_, win):
         return TileDecompressor(
@@ -70,8 +672,7 @@ class CodestreamDecoder(_RefDecoder):
             rects.append(tc.resolutions[numres_used - 1].rect)
         return rects
 
-    def _decode_tiles_device_batched(self, tiles, p, img, reduce_,
-                                     mesh=None):
+    def _decode_tiles_device_batched(self, tiles, p, img, reduce_):
         """Batched device synthesis over all uniform full-size tiles.
         Returns {tidx: (planes, rects)} for the tiles it handled."""
         cp = self.hi.cp
@@ -111,11 +712,10 @@ class CodestreamDecoder(_RefDecoder):
 
     def decode_tile_planes(self, tidx: int, p: DecompressParams, img,
                            reduce_: int, win: Rect | None = None,
-                           cache=None, defer: bool = False):
+                           cache=None):
         """Decode one tile to per-component planes (+ their reduced-grid
         rects).  Returns None for empty / out-of-window / missing tiles.
-        An optional TileCache serves repeat requests.  `defer` is accepted
-        for the base class's callers; the planes come back materialized."""
+        An optional TileCache serves repeat requests."""
         cp = self.hi.cp
         hi = self.hi
         img_rect = Rect(hi.siz.xosiz, hi.siz.yosiz, hi.siz.xsiz, hi.siz.ysiz)

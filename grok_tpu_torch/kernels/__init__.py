@@ -15,7 +15,7 @@ import torch
 from . import build
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
-    ("fwd_53_lift", "inv_53_lift", "rct_forward_shift",
+    ("fwd53_level", "inv53_level", "rct_forward_shift",
      "rct_inverse_unshift"), 0)
 
 

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every `grok_tpu_torch/csrc/*.cu` is compiled by `nvcc` for Hopper
-(`sm_90a`) into one shared library with a plain C interface, at first use,
-and loaded with ctypes.  The library goes to `build/grok_tpu_torch/` beside
+Every `grok_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` for Hopper
+(`sm_90a`), all at once, and the objects are linked into one shared library
+with a plain C interface, at first use, and loaded with ctypes.  The library goes to `build/grok_tpu_torch/` beside
 the package and is rebuilt when a source is newer.  There is no fallback:
 a missing `nvcc` or a failed build raises with the compiler's output.
 """
@@ -19,16 +19,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "grok_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libgrk_torch_kernels.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: (argument types); each returns a cudaError_t as int
 _SIGNATURES = {
-    # x, lo, hi, n, lines, planes, 3 x (along, across) strides, stream
-    "grk_fwd53": (_P, _P, _P) + (_I,) * 9 + (_P,),
-    # lo, hi, out, n, lines, planes, 3 x (along, across) strides, stream
-    "grk_inv53": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    # x, ll, hl, lh, hh, h, w, planes, stream
+    "grk_fwd53_level": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # ll, hl, lh, hh, out, h, w, planes, stream
+    "grk_inv53_level": (_P,) * 5 + (_I,) * 3 + (_P,),
     # r, g, b, y, cb, cr, count, shift, stream
     "grk_rct_fwd": (_P,) * 6 + (_I, _I, _P),
     # y, cb, cr, r, g, b, count, prec, sgnd, stream
@@ -71,21 +72,46 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in sources())
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; returns their output, or raises with the
+    first failure's."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise KernelBuildError(
+                f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{out}")
+    return "".join(out for _, out, _ in outs)
+
+
 def build() -> str:
-    """Compile the kernels into LIB_PATH; returns nvcc's output, which
-    holds ptxas's register and spill report for each kernel."""
+    """Compile the kernels into LIB_PATH, one nvcc a source in parallel,
+    then link; returns nvcc's output, which holds ptxas's register and
+    spill report for each kernel."""
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.tmp.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[s for s in sources()
-                                            if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
+    tag = f"tmp.{os.getpid()}"
+    objs = []
+    compiles = []
+    for src in sources():
+        if src.endswith(".cu"):
+            obj = os.path.join(BUILD_DIR,
+                               f"{os.path.basename(src)[:-3]}.{tag}.o")
+            objs.append(obj)
+            compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
+    tmp = f"{LIB_PATH}.{tag}"
+    try:
+        report = _run(compiles)
+        report += _run([[nvcc, *GENCODE, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader never sees half
-    return proc.stderr + proc.stdout
+    return report
 
 
 def load() -> ctypes.CDLL:

@@ -1,21 +1,17 @@
-"""Reversible 5/3 lifting along one axis: the port of grok_tpu/ops/pallas_dwt.py.
+"""Reversible 5/3 lifting along one axis, in plain PyTorch.
 
-`fwd_53_lift` / `inv_53_lift` lift a (..., H, W) int32 tensor along its
-rows (axis=-2, the vertical pass of the TPU's fwd_53_vertical /
-inv_53_vertical) or along its columns (axis=-1, the horizontal pass).  On
-a CUDA tensor they launch csrc/lifting53.cu; on a CPU tensor they run the
-plain twins below, which have the same int32 semantics as
-grok_tpu/ops/dwt.py fwd_53_axis / inv_53_axis (wrap on overflow, whole-
-sample symmetric mirroring at the edges, any length including odd and 1).
+`fwd_53_lift_plain` / `inv_53_lift_plain` lift a (..., H, W) int32 tensor
+along its rows (axis=-2, what grok_tpu/ops/pallas_dwt.py fwd_53_vertical /
+inv_53_vertical compute) or along its columns (axis=-1, the horizontal
+pass), with the int32 semantics of grok_tpu/ops/dwt.py fwd_53_axis /
+inv_53_axis: wrap on overflow, whole-sample symmetric mirroring at the
+edges, any length including odd and 1.  They are the building blocks of
+ops/dwt.py's level twins, which the level kernel is held against.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
-
-from ..kernels import launch, on_card
 
 
 def _check_axis(x: torch.Tensor, axis: int) -> None:
@@ -24,66 +20,6 @@ def _check_axis(x: torch.Tensor, axis: int) -> None:
     if x.dim() < 2:
         raise ValueError(f"expected a (..., H, W) tensor, got {x.shape}")
 
-
-def _halves(shape: torch.Size, n: int, axis: int):
-    """Shapes of the low and high halves of a lift of length n."""
-    lo, hi = list(shape), list(shape)
-    lo[axis], hi[axis] = (n + 1) // 2, n // 2
-    return lo, hi
-
-
-def _strides(t: torch.Tensor, axis: int) -> tuple[int, int]:
-    """(along, across) element strides of the lines of `t` along `axis`."""
-    return t.stride(axis), t.stride(-1 if axis == -2 else -2)
-
-
-def _lines(shape: torch.Size, axis: int) -> tuple[int, int]:
-    """(lines per plane, planes) of a lift along `axis`."""
-    return shape[-1 if axis == -2 else -2], math.prod(shape[:-2])
-
-
-def fwd_53_lift(x: torch.Tensor, axis: int):
-    """Forward reversible 5/3 along `axis`: returns (lo, hi), with
-    ceil(n/2) and floor(n/2) samples along it."""
-    _check_axis(x, axis)
-    if not on_card(x):
-        return fwd_53_lift_plain(x, axis)
-    n = x.shape[axis]
-    lo_shape, hi_shape = _halves(x.shape, n, axis)
-    lo = torch.empty(lo_shape, dtype=torch.int32, device=x.device)
-    hi = torch.empty(hi_shape, dtype=torch.int32, device=x.device)
-    if x.numel() == 0:
-        return lo, hi
-    lines, planes = _lines(x.shape, axis)
-    launch("fwd_53_lift", "grk_fwd53", x.device, (x, lo, hi),
-           (n, lines, planes, *_strides(x, axis), *_strides(lo, axis),
-            *_strides(hi, axis)))
-    return lo, hi
-
-
-def inv_53_lift(lo: torch.Tensor, hi: torch.Tensor, n: int, axis: int):
-    """Inverse of fwd_53_lift: the (lo, hi) halves back to `n` samples
-    along `axis`."""
-    _check_axis(lo, axis)
-    lo_shape, hi_shape = _halves(lo.shape, n, axis)
-    if list(lo.shape) != lo_shape or list(hi.shape) != hi_shape:
-        raise ValueError(f"halves {tuple(lo.shape)}, {tuple(hi.shape)} do "
-                         f"not make {n} samples along axis {axis}")
-    if not on_card(lo, hi):
-        return inv_53_lift_plain(lo, hi, n, axis)
-    shape = list(lo.shape)
-    shape[axis] = n
-    out = torch.empty(shape, dtype=torch.int32, device=lo.device)
-    if out.numel() == 0:
-        return out
-    lines, planes = _lines(out.shape, axis)
-    launch("inv_53_lift", "grk_inv53", lo.device, (lo, hi, out),
-           (n, lines, planes, *_strides(lo, axis), *_strides(hi, axis),
-            *_strides(out, axis)))
-    return out
-
-
-# ---------------------------------------------------------------- plain twins
 
 def _fwd_last(x: torch.Tensor):
     """Forward 5/3 along the last axis (grok_tpu/ops/dwt.py fwd_53_axis)."""
@@ -127,7 +63,8 @@ def _d_pair(d, ne, no):
 
 
 def fwd_53_lift_plain(x: torch.Tensor, axis: int):
-    """Plain PyTorch twin of fwd_53_lift."""
+    """Forward reversible 5/3 along `axis`: returns (lo, hi), with
+    ceil(n/2) and floor(n/2) samples along it."""
     _check_axis(x, axis)
     if axis == -2:
         lo, hi = _fwd_last(x.transpose(-1, -2))
@@ -139,7 +76,8 @@ def fwd_53_lift_plain(x: torch.Tensor, axis: int):
 
 def inv_53_lift_plain(lo: torch.Tensor, hi: torch.Tensor, n: int,
                       axis: int) -> torch.Tensor:
-    """Plain PyTorch twin of inv_53_lift."""
+    """Inverse of fwd_53_lift_plain: the (lo, hi) halves back to `n`
+    samples along `axis`."""
     _check_axis(lo, axis)
     if axis == -2:
         out = _inv_last(lo.transpose(-1, -2), hi.transpose(-1, -2), n)

@@ -6,8 +6,8 @@ reversible path only.
   inverse RCT -> DC unshift and clip.
 
 Both take batched (C, B, H, W) even-origin int32 tiles.  The RCT with its
-DC shift and the lifting run as CUDA kernels on CUDA tensors (ops/mct.py,
-ops/lifting.py); the halving and the DC shift of components that skip the
+DC shift and each DWT level run as CUDA kernels on CUDA tensors (ops/mct.py,
+ops/dwt.py); the halving and the DC shift of components that skip the
 RCT are plain PyTorch, as they are jnp outside Pallas in the reference.
 """
 

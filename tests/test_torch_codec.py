@@ -3,7 +3,9 @@ codestreams and exact decodes.
 
 The port runs with backend="device" on device="cpu", where its wrappers
 take their plain twins; grok_tpu runs its native host path (and, for the
-small cases, its own JAX device path).  Every lossless case decodes
+small cases, its own JAX device path).  Both packages get the same image
+and parameters: built with grok_tpu's classes, carried to the port's with
+grok_tpu_torch.params.from_reference.  Every lossless case decodes
 bit-exact; a rate-limited one decodes to grok_tpu's own native decode.
 """
 
@@ -14,11 +16,24 @@ jax = pytest.importorskip("jax")
 
 import grok_tpu  # noqa: E402
 import grok_tpu_torch  # noqa: E402
+from grok_tpu import CompressParams, DecompressParams, GrkImage  # noqa: E402
 from grok_tpu.params import Progression, ProgressionChange  # noqa: E402
-from grok_tpu_torch import (CompressParams, DecompressParams,  # noqa: E402
-                            GrkImage)
 from grok_tpu_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from grok_tpu_torch.params import from_reference as port  # noqa: E402
 from grok_tpu_torch.tile.processor import HOST_PATH_TILES  # noqa: E402
+
+
+def _port_compress(img, **kw):
+    """grok_tpu_torch.compress of grok_tpu's image and parameters, on the
+    plain twins."""
+    return grok_tpu_torch.compress(
+        port(img), port(CompressParams(backend="device", **kw)),
+        device="cpu")
+
+
+def _port_decompress(data):
+    return grok_tpu_torch.decompress(
+        data, port(DecompressParams(backend="device")), device="cpu")
 
 
 @pytest.fixture
@@ -33,15 +48,13 @@ def _roundtrip(arr, host_tiles, jax_device=False, lossless=True, **kw):
     exact (or, for rate-limited streams, equal to grok_tpu's native
     decode).  Returns the codestream."""
     img = GrkImage.from_array(arr)
-    ours = grok_tpu_torch.compress(
-        img, CompressParams(backend="device", **kw), device="cpu")
+    ours = _port_compress(img, **kw)
     assert ours == grok_tpu.compress(
         img, CompressParams(backend="native", **kw))
     if jax_device:
         assert ours == grok_tpu.compress(
             img, CompressParams(backend="device", **kw))
-    out = grok_tpu_torch.decompress(ours, DecompressParams(backend="device"),
-                                    device="cpu")
+    out = _port_decompress(ours)
     if lossless:
         assert np.array_equal(out.to_array(), arr.astype(np.int32))
     else:
@@ -134,13 +147,11 @@ def test_ht_and_jp2(rng, host_tiles):
     arr = rng.integers(0, 4096, size=(48, 80, 3)).astype(np.uint16)
     img = GrkImage.from_array(arr, prec=12)
     kw = dict(numresolution=4, ht=True, cod_format="jp2")
-    ours = grok_tpu_torch.compress(
-        img, CompressParams(backend="device", **kw), device="cpu")
+    ours = _port_compress(img, **kw)
     assert ours[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
     assert ours == grok_tpu.compress(
         img, CompressParams(backend="native", **kw))
-    out = grok_tpu_torch.decompress(ours, DecompressParams(backend="device"),
-                                    device="cpu")
+    out = _port_decompress(ours)
     assert np.array_equal(out.to_array(), arr.astype(np.int32))
     assert grok_tpu_torch.read_header(ours).image.numcomps == 3
 
@@ -157,13 +168,10 @@ def test_odd_origin_takes_host_path(rng, host_tiles):
     the host path, are counted, and the bytes still match."""
     arr = rng.integers(0, 256, size=(50, 60, 3)).astype(np.uint8)
     img = GrkImage.from_array(arr, offset=(3, 5))
-    ours = grok_tpu_torch.compress(
-        img, CompressParams(backend="device", numresolution=3),
-        device="cpu")
+    ours = _port_compress(img, numresolution=3)
     assert ours == grok_tpu.compress(
         img, CompressParams(backend="native", numresolution=3))
-    out = grok_tpu_torch.decompress(ours, DecompressParams(backend="device"),
-                                    device="cpu")
+    out = _port_decompress(ours)
     assert np.array_equal(out.to_array(), arr.astype(np.int32))
     assert host_tiles["encode"] == 1 and host_tiles["decode"] == 1
 
@@ -174,13 +182,11 @@ def test_lossy_takes_host_path(rng, host_tiles):
     arr = rng.integers(0, 256, size=(32, 32, 3)).astype(np.uint8)
     img = GrkImage.from_array(arr)
     kw = dict(numresolution=3, irreversible=True)
-    ours = grok_tpu_torch.compress(
-        img, CompressParams(backend="device", **kw), device="cpu")
+    ours = _port_compress(img, **kw)
     assert ours == grok_tpu.compress(
         img, CompressParams(backend="native", **kw))
     ref = grok_tpu.decompress(ours, DecompressParams(backend="native"))
-    out = grok_tpu_torch.decompress(ours, DecompressParams(backend="device"),
-                                    device="cpu")
+    out = _port_decompress(ours)
     assert np.array_equal(out.to_array(), ref.to_array())
     assert host_tiles == {"encode": 1, "decode": 1}
 
@@ -193,20 +199,18 @@ def test_host_backend_and_launch_counts(rng, host_tiles):
     _roundtrip(arr, host_tiles, numresolution=3)
     img = GrkImage.from_array(arr)
     assert grok_tpu_torch.compress(
-        img, CompressParams(backend="native", numresolution=3)) == \
-        grok_tpu.compress(img, CompressParams(backend="native",
-                                              numresolution=3))
+        port(img), port(CompressParams(backend="native", numresolution=3))) \
+        == grok_tpu.compress(img, CompressParams(backend="native",
+                                                 numresolution=3))
     assert all(v == 0 for v in LAUNCHES.values())
 
 
 def test_mesh_not_ported():
     arr = np.zeros((16, 16), np.uint8)
     with pytest.raises(NotImplementedError, match="A13"):
-        grok_tpu_torch.compress(GrkImage.from_array(arr),
-                                CompressParams(backend="device", mesh=2),
-                                device="cpu")
+        _port_compress(GrkImage.from_array(arr), mesh=2)
     data = grok_tpu.compress(GrkImage.from_array(arr),
                              CompressParams(backend="native"))
     with pytest.raises(NotImplementedError, match="A13"):
-        grok_tpu_torch.decompress(data, DecompressParams(mesh=2),
+        grok_tpu_torch.decompress(data, port(DecompressParams(mesh=2)),
                                   device="cpu")

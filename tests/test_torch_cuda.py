@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from grok_tpu_torch.kernels import LAUNCHES, reset_launches
-from grok_tpu_torch.ops import lifting, mct, pipeline
+from grok_tpu_torch.ops import dwt, mct, pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -32,19 +32,34 @@ def _rand(gen, shape, lo, hi):
 
 
 @pytest.mark.parametrize("shape", [(3, 1, 135, 240), (2, 37, 257),
-                                   (2, 1, 9), (1, 2, 1), (3, 64, 67)])
-@pytest.mark.parametrize("axis", [-2, -1])
-def test_lifting_kernels_match_twins(gen, shape, axis):
+                                   (2, 1, 9), (1, 2, 1), (3, 64, 67),
+                                   (2, 9, 1), (1, 1, 1), (3, 2, 512, 512)])
+def test_lifting_kernels_match_twins(gen, shape):
+    """The level kernels, full-range int32 in, against their twins."""
     reset_launches()
     x = _rand(gen, shape, -(2 ** 31), 2 ** 31)
-    lo, hi = lifting.fwd_53_lift(x, axis)
-    rlo, rhi = lifting.fwd_53_lift_plain(x, axis)
-    assert torch.equal(lo, rlo) and torch.equal(hi, rhi)
-    n = shape[axis]
-    back = lifting.inv_53_lift(lo, hi, n, axis)
-    assert torch.equal(back, lifting.inv_53_lift_plain(lo, hi, n, axis))
+    bands = dwt.fwd_level(x)
+    for b, ref in zip(bands, dwt.fwd_level_plain(x)):
+        assert torch.equal(b, ref)
+    h, w = shape[-2:]
+    back = dwt.inv_level(*bands, h, w)
+    assert torch.equal(back, dwt.inv_level_plain(*bands, h, w))
     assert torch.equal(back, x)
-    assert LAUNCHES["fwd_53_lift"] == 1 and LAUNCHES["inv_53_lift"] == 1
+    # the inverse from arbitrary bands, so its sums overflow
+    arb = [_rand(gen, b.shape, -(2 ** 31), 2 ** 31) for b in bands]
+    assert torch.equal(dwt.inv_level(*arb, h, w),
+                       dwt.inv_level_plain(*arb, h, w))
+    assert LAUNCHES["fwd53_level"] == 1 and LAUNCHES["inv53_level"] == 2
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 37, 135, 257])
+@pytest.mark.parametrize("w", [1, 2, 3, 37, 135, 257])
+def test_level_kernels_odd_and_short(gen, h, w):
+    x = _rand(gen, (2, h, w), -5000, 5000)
+    bands = dwt.fwd_level(x)
+    for b, ref in zip(bands, dwt.fwd_level_plain(x)):
+        assert torch.equal(b, ref), (h, w)
+    assert torch.equal(dwt.inv_level(*bands, h, w), x)
 
 
 @pytest.mark.parametrize("prec", [8, 12, 16])

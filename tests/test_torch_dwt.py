@@ -3,7 +3,8 @@
 The same numpy-seeded int32 inputs go through the JAX reference (the
 Pallas kernels in interpret mode, the jnp lifting, the host numpy oracle)
 and through the port's plain PyTorch twins, which is what the port's
-wrappers run on CPU tensors.  Tolerance: 0, every stage is integer.
+wrappers run on CPU tensors and what the level kernel is held against on
+the card.  Tolerance: 0, every stage is integer.
 """
 
 import numpy as np
@@ -18,8 +19,8 @@ from grok_tpu.ops.pallas_dwt import fwd_53_vertical, inv_53_vertical  # noqa: E4
 from grok_tpu.tile.geometry import Rect  # noqa: E402
 from grok_tpu.transform import dwt as hdwt  # noqa: E402
 from grok_tpu_torch.ops import dwt as tdwt  # noqa: E402
-from grok_tpu_torch.ops.lifting import (fwd_53_lift, fwd_53_lift_plain,  # noqa: E402
-                                        inv_53_lift, inv_53_lift_plain)
+from grok_tpu_torch.ops.lifting import (fwd_53_lift_plain,  # noqa: E402
+                                        inv_53_lift_plain)
 
 
 def _t(a):
@@ -60,7 +61,7 @@ def test_lift_matches_jnp_axis(n, axis, rng):
     rlo, rhi = ddwt.fwd_53_axis(xa)
     if axis == -2:
         rlo, rhi = np.swapaxes(rlo, -1, -2), np.swapaxes(rhi, -1, -2)
-    lo, hi = fwd_53_lift(_t(x), axis)  # CPU tensor: the plain twin
+    lo, hi = fwd_53_lift_plain(_t(x), axis)
     assert np.array_equal(lo.numpy(), np.asarray(rlo))
     assert np.array_equal(hi.numpy(), np.asarray(rhi))
     # inverse from arbitrary halves, against inv_53_axis
@@ -72,8 +73,9 @@ def test_lift_matches_jnp_axis(n, axis, rng):
             jnp.asarray(np.swapaxes(b, -1, -2)), n)), -1, -2)
     else:
         ref = np.asarray(ddwt.inv_53_axis(jnp.asarray(a), jnp.asarray(b), n))
-    assert np.array_equal(inv_53_lift(_t(a), _t(b), n, axis).numpy(), ref)
-    assert np.array_equal(inv_53_lift(lo, hi, n, axis).numpy(), x)
+    assert np.array_equal(inv_53_lift_plain(_t(a), _t(b), n, axis).numpy(),
+                          ref)
+    assert np.array_equal(inv_53_lift_plain(lo, hi, n, axis).numpy(), x)
 
 
 @pytest.mark.parametrize("h,w", [(64, 64), (37, 53), (2, 2), (5, 8)])
@@ -124,3 +126,29 @@ def test_lift_wraps_like_int32(h, w, rng):
     ref_f = ddwt.fwd_level(jnp.asarray(x), True)
     for ours, theirs in zip(tdwt.fwd_level(_t(x)), ref_f):
         assert np.array_equal(ours.numpy(), np.asarray(theirs)), (h, w)
+
+
+_LEVEL_SIZES = (1, 2, 3, 4, 37, 64, 135)
+# one XLA compilation a shape instead of one a jnp operation
+_ref_fwd_level = jax.jit(ddwt.fwd_level, static_argnums=1)
+_ref_inv_level = jax.jit(ddwt.inv_level, static_argnums=(4, 5, 6))
+
+
+@pytest.mark.parametrize("w", _LEVEL_SIZES)
+@pytest.mark.parametrize("h", _LEVEL_SIZES)
+def test_level_plain_matches_reference(h, w, rng):
+    """fwd_level_plain / inv_level_plain, the twins the level kernel is
+    held against, against grok_tpu.ops.dwt fwd_level / inv_level: odd,
+    even and length-1 shapes, ordinary samples and int32 extremes."""
+    for x in (rng.integers(-5000, 5000, (2, h, w)).astype(np.int32),
+              _extreme(rng, (2, h, w))):
+        ref = _ref_fwd_level(jnp.asarray(x), True)
+        ours = tdwt.fwd_level_plain(_t(x))
+        for o, r in zip(ours, ref):
+            assert np.array_equal(o.numpy(), np.asarray(r)), (h, w)
+        # the inverse from arbitrary bands, so its sums overflow too
+        bands = [_extreme(rng, o.shape) for o in ours]
+        ref_back = _ref_inv_level(*map(jnp.asarray, bands), h, w, True)
+        back = tdwt.inv_level_plain(*map(_t, bands), h, w)
+        assert np.array_equal(back.numpy(), np.asarray(ref_back)), (h, w)
+        assert np.array_equal(tdwt.inv_level_plain(*ours, h, w).numpy(), x)

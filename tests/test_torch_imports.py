@@ -1,16 +1,22 @@
-"""The port's boundaries: no jax, no hidden CPU fallback, no silent build.
+"""The port's boundaries: no jax, no grok_tpu, no hidden CPU fallback, no
+silent build.
 
 grok_tpu_torch imports torch and never jax (a machine with a GPU may have no
-jax at all); a CUDA device that is missing raises instead of moving work to
-the CPU; a kernel library that cannot be built raises with the reason; and
-only kernel launches, never runs of the plain twins, count as launches.
+jax at all), and nothing of grok_tpu: it carries its own host modules and
+builds its own copy of the native coder; by default it runs on the card,
+and a CUDA device that is missing raises instead of moving work to the CPU;
+a library that cannot be built raises with the reason; and only kernel
+launches, never runs of the plain twins, count as launches.
 """
 
+import ast
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -18,7 +24,7 @@ import torch
 
 from grok_tpu_torch import device as device_mod
 from grok_tpu_torch.kernels import LAUNCHES, build, reset_launches
-from grok_tpu_torch.ops import lifting, mct, pipeline
+from grok_tpu_torch.ops import dwt, mct, pipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,18 +34,23 @@ before = set(sys.modules)
 import numpy as np
 import grok_tpu_torch
 from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
-arr = np.random.default_rng(0).integers(0, 256, (64, 64, 3)).astype(np.uint8)
-data = grok_tpu_torch.compress(GrkImage.from_array(arr),
-                               CompressParams(backend="device"), device="cpu")
-out = grok_tpu_torch.decompress(data, DecompressParams(backend="device"),
-                                device="cpu")
-assert np.array_equal(out.to_array(), arr)
+rng = np.random.default_rng(0)
+for arr, kw in ((rng.integers(0, 256, (64, 64, 3)).astype(np.uint8),
+                 dict(ht=True)),
+                (rng.integers(0, 256, (96, 80)).astype(np.uint8),
+                 dict(tile_size=(32, 32), numresolution=3))):
+    data = grok_tpu_torch.compress(GrkImage.from_array(arr),
+                                   CompressParams(**kw), device="cpu")
+    out = grok_tpu_torch.decompress(data, DecompressParams(), device="cpu")
+    assert np.array_equal(out.to_array(), arr)
 print(json.dumps(sorted(m for m in set(sys.modules) - before
-                        if m == "jax" or m.startswith(("jax.", "jaxlib")))))
+                        if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))))
 """
 
 
 def test_port_imports_no_jax():
+    """A compress and decompress through the port (HT RGB, and MQ gray in
+    tiles) loads no jax and no grok_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -65,6 +76,25 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
     assert '"ok"' not in proc.stdout
 
 
+def _port_sources():
+    """Every Python source of the port, and chip_smoke.py."""
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "grok_tpu_torch")):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _imported_packages(path):
+    """Top-level packages a source imports (absolute imports only)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module.split(".")[0]
+
+
 def test_port_sources_do_not_import_jax():
     pkg = os.path.join(ROOT, "grok_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
@@ -74,6 +104,75 @@ def test_port_sources_do_not_import_jax():
                     text = fh.read()
                 assert not re.search(r"^\s*(import|from)\s+jax\b", text,
                                      re.MULTILINE), f
+
+
+def test_port_sources_do_not_import_grok_tpu():
+    """No import statement of the port or of chip_smoke.py, at any depth,
+    names grok_tpu or jax (grok_tpu_torch itself excepted)."""
+    for path in _port_sources():
+        bad = {m for m in _imported_packages(path)
+               if m in ("grok_tpu", "jax", "jaxlib")}
+        assert not bad, (path, bad)
+
+
+def test_native_coder_is_the_ports_own():
+    """The native host coder the port loads is its own build from
+    native/, under build/grok_tpu_torch/, not grok_tpu's copy."""
+    from grok_tpu_torch.t1 import native
+
+    root = os.path.realpath(ROOT)
+    lib = os.path.realpath(native._lib._name)
+    assert lib == os.path.join(root, "build", "grok_tpu_torch",
+                               "libgrk_t1.so")
+    assert os.path.realpath(native.SRC_DIR) == os.path.join(root, "native")
+    assert not lib.startswith(os.path.join(root, "grok_tpu") + os.sep)
+
+
+def _fake_native_tree(tmp_path, monkeypatch, amalgam):
+    from grok_tpu_torch.t1 import native
+
+    src = tmp_path / "native"
+    src.mkdir()
+    for name in native._SOURCES:
+        (src / name).write_text("")
+    (src / "amalgam.cc").write_text(amalgam)
+    monkeypatch.setattr(native, "SRC_DIR", str(src))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "LIB_PATH",
+                        str(tmp_path / "build" / "libgrk_t1.so"))
+    return native
+
+
+def test_native_build_failure_raises_with_gxx_output(tmp_path, monkeypatch):
+    native = _fake_native_tree(tmp_path, monkeypatch,
+                               "int broken( { return 0; }\n")
+    with pytest.raises(native.NativeBuildError, match="amalgam.cc"):
+        native.build()
+    assert not os.path.exists(native.LIB_PATH)
+
+
+def test_native_build_runs_once_under_the_lock(tmp_path, monkeypatch):
+    """Concurrent builders (the test workers) wait on the lock: one
+    compiles, the others find the library fresh."""
+    native = _fake_native_tree(tmp_path, monkeypatch, "")
+    calls = []
+
+    def fake_compile(out):
+        calls.append(out)
+        time.sleep(0.2)
+        with open(out, "w") as f:
+            f.write("lib")
+        return ""
+
+    monkeypatch.setattr(native, "_compile", fake_compile)
+    threads = [threading.Thread(target=native.build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1
+    assert os.path.exists(native.LIB_PATH)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -108,6 +207,68 @@ def test_device_codec_without_cuda_raises(monkeypatch):
         grok_tpu_torch.compress(img, CompressParams(backend="device"))
 
 
+def test_defaults_target_the_card(monkeypatch):
+    """compress and decompress with nothing asked for run on the card:
+    without CUDA they raise; the host route needs asking for."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+
+    assert CompressParams().backend == "device"
+    assert DecompressParams().backend == "device"
+    img = GrkImage.from_array(np.zeros((16, 16), np.uint8))
+    data = grok_tpu_torch.compress(img, CompressParams(backend="native"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        grok_tpu_torch.compress(img)
+    with pytest.raises(RuntimeError, match="cuda"):
+        grok_tpu_torch.decompress(data)
+
+
+def test_cpu_defaults_launch_nothing():
+    """device="cpu" with default parameters runs the plain twins: no
+    launch, and no tile sent down the host path."""
+    import grok_tpu_torch
+    from grok_tpu_torch import GrkImage
+    from grok_tpu_torch.tile.processor import HOST_PATH_TILES
+
+    reset_launches()
+    for k in HOST_PATH_TILES:
+        HOST_PATH_TILES[k] = 0
+    arr = np.arange(48 * 40 * 3, dtype=np.int64).reshape(48, 40, 3) % 256
+    data = grok_tpu_torch.compress(GrkImage.from_array(arr), device="cpu")
+    out = grok_tpu_torch.decompress(data, device="cpu")
+    assert np.array_equal(out.to_array(), arr)
+    assert all(v == 0 for v in LAUNCHES.values())
+    assert HOST_PATH_TILES == {"encode": 0, "decode": 0}
+
+
+def test_from_reference_rebuilds_the_ports_types():
+    """params.from_reference carries grok_tpu's image and parameters over
+    to the port's own classes, nested dataclasses and enums included."""
+    from grok_tpu import image as ref_image
+    from grok_tpu import params as ref_params
+    from grok_tpu_torch import image as port_image
+    from grok_tpu_torch import params as port_params
+
+    poc = ref_params.ProgressionChange(0, 0, 1, 2, 3,
+                                       ref_params.Progression.RLCP)
+    p = port_params.from_reference(ref_params.CompressParams(
+        prog_order=ref_params.Progression.CPRL, progression_changes=[poc],
+        cblk_style=ref_params.CblkStyle.LAZY, tile_size=(32, 32)))
+    assert type(p) is port_params.CompressParams
+    assert p.prog_order is port_params.Progression.CPRL
+    assert type(p.progression_changes[0]) is port_params.ProgressionChange
+    assert p.progression_changes[0].prog is port_params.Progression.RLCP
+    assert p.cblk_style == port_params.CblkStyle.LAZY
+    assert p.tile_size == (32, 32) and p.backend == "auto"
+    arr = np.arange(12, dtype=np.uint8).reshape(3, 4)
+    img = port_params.from_reference(ref_image.GrkImage.from_array(arr))
+    assert type(img) is port_image.GrkImage
+    assert type(img.comps[0]) is port_image.ImageComponent
+    assert img.color_space is port_image.ColorSpace.GRAY
+    assert np.array_equal(img.to_array(), arr)
+
+
 def test_device_backend_needs_the_native_coder(monkeypatch):
     """backend="device" codes Tier-1 on the native host coder; where it
     does not load, the port raises instead of coding in pure Python."""
@@ -130,7 +291,7 @@ def test_cpu_runs_launch_nothing(rng):
     pipeline.synthesis({k: 2 * v for k, v in bands.items()}, numres=3,
                        reversible=True, mct=1, prec=8, sgnd=False,
                        shape=(16, 24))
-    assert set(LAUNCHES) == {"fwd_53_lift", "inv_53_lift",
+    assert set(LAUNCHES) == {"fwd53_level", "inv53_level",
                              "rct_forward_shift", "rct_inverse_unshift"}
     assert all(v == 0 for v in LAUNCHES.values())
 
@@ -138,12 +299,12 @@ def test_cpu_runs_launch_nothing(rng):
 def test_wrappers_check_their_input():
     x = torch.zeros((4, 4), dtype=torch.int64)
     with pytest.raises(TypeError):
-        lifting.fwd_53_lift(x, -2)
+        dwt.fwd_level(x)
     with pytest.raises(ValueError):
-        lifting.fwd_53_lift(x.to(torch.int32), 0)
+        dwt.fwd_level(torch.zeros(4, dtype=torch.int32))
+    bands = dwt.fwd_level(x.to(torch.int32))
     with pytest.raises(ValueError):
-        lifting.inv_53_lift(torch.zeros((2, 4), dtype=torch.int32),
-                            torch.zeros((1, 4), dtype=torch.int32), 5, -2)
+        dwt.inv_level(*bands, 5, 4)
     with pytest.raises(ValueError, match="no kernel route"):
         mct.rct_forward_shift(*[torch.zeros((2, 2), dtype=torch.int32,
                                             device="meta")] * 3, 8, False)
