@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 a source, in parallel) and the native host coder from native/, holds each
 kernel bit-exact against its plain PyTorch twin on the card at the shapes
-the lossless 5/3 path gives it, times kernel and twin, then drives
+the lossless 5/3 path gives it (the HT Tier-1 kernels byte for byte, on
+corrupt streams and under the three CxtVLC table swaps too), times kernel
+and twin (the HT pair on case (b)'s codeblock population), then drives
 grok_tpu_torch.compress / decompress with their defaults (the card) on
 three cases:
 
@@ -18,8 +20,10 @@ three cases:
 Each case must write the same bytes as the port's plain route (its twins,
 device="cpu") and its host route (backend="native") in this process,
 decode bit-exact, raise every launch counter of its path (case (b): one
-launch of each level kernel a DWT level, one of each RCT kernel) and send
-no tile down the host path.  No jax and no grok_tpu module may load.
+launch of each level kernel a DWT level, one of each RCT kernel, one of
+each HT kernel) and send no tile down the host path; case (b) says how
+many codeblocks each direction coded on the card and on the native coder,
+and where its Tier-1 time goes.  No jax and no grok_tpu module may load.
 Every phase raises on failure.  The last two lines are one JSON object with
 the kernels' launches, errors, times and bounds, and the ok line.  Exits
 nonzero, printing neither, when no CUDA device is present.
@@ -183,6 +187,209 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+# ------------------------------------------------------------ HT Tier-1
+
+def seg_err(a, b) -> int:
+    """Largest difference between two encode results ([(segment, numbps)],
+    [sum of squares]): bytes, numbps and sums; 256 for a length mismatch."""
+    (sa, qa), (sb, qb) = a, b
+    err = max([abs(x - y) for x, y in zip(qa, qb)] + [0])
+    for (da, na), (db, nb) in zip(sa, sb):
+        err = max(err, abs(na - nb))
+        if len(da) != len(db):
+            err = max(err, 256)
+        elif da:
+            err = max(err, int(np.abs(np.frombuffer(da, np.uint8).astype(
+                int) - np.frombuffer(db, np.uint8)).max()))
+    return err if len(sa) == len(sb) else max(err, 256)
+
+
+def check_ht_pair(ht_encode, ht_decode, blocks, items, err):
+    """Kernel against twin on numpy blocks (encode) and on their segments
+    plus `items` (decode); the twins on the CPU."""
+    cpu = [torch.from_numpy(np.ascontiguousarray(b)) for b in blocks]
+    ref = ht_encode.encode_cblks_ht_plain(cpu)
+    err["ht_encode"] = max(err["ht_encode"], seg_err(
+        ht_encode.encode_cblks_ht([b.cuda() for b in cpu]), ref))
+    items = [(s, *b.shape) for (s, _), b in zip(ref[0], blocks)] + items
+    got = ht_decode.decode_cblks_ht(items, "cuda")
+    want = ht_decode.decode_cblks_ht_plain(items, "cpu")
+    err["ht_decode"] = max([err["ht_decode"]] + [
+        max_err(g.cpu(), w) for g, w in zip(got, want)])
+    return ref
+
+
+def check_ht(ht_encode, ht_decode, ht_tables, cases):
+    """The HT kernels against their twins on tests/torch_ht_cases.py's
+    inputs: the encode shapes at densities 0.05-0.95 and magnitudes up to
+    2^25 - 1, a 0xFF-dense block, mixed shapes in one batch, corrupt and
+    truncated streams, the three table swaps; and numbps above 25
+    (INT32_MIN too) refused."""
+    rng = np.random.default_rng(SEED)
+    err = {"ht_encode": 0, "ht_decode": 0}
+    blocks = [b for shape in cases.ENC_SHAPES + cases.DEC_SHAPES
+              for b in cases.blocks(rng, *shape, n=8)]
+    blocks += list(cases.dense_ff())
+    ref = check_ht_pair(ht_encode, ht_decode, blocks, [], err)
+    items = [(s, *b.shape) for (s, _), b in zip(ref[0], blocks)]
+    check_ht_pair(ht_encode, ht_decode, [], cases.corrupt(rng, items[:40]),
+                  err)
+    for tables in cases.table_swaps().values():
+        try:
+            ht_tables.set_tables(*tables)
+            sw = list(cases.blocks(rng, 16, 16, 6, mag=900))
+            ref = check_ht_pair(ht_encode, ht_decode, sw, [], err)
+            check_ht_pair(ht_encode, ht_decode, [], cases.corrupt(
+                rng, [(s, 16, 16) for s, _ in ref[0]], n=8), err)
+        finally:
+            ht_tables.reset_tables()
+    for v in (1 << 25, INT_MIN):
+        block = torch.zeros((8, 8), dtype=torch.int32, device="cuda")
+        block[3, 4] = v
+        try:
+            ht_encode.encode_cblks_ht([block])
+        except ValueError:
+            continue
+        raise AssertionError(f"ht_encode took a magnitude of {v}")
+    return err
+
+
+def ht_population(arr, pipeline):
+    """Case (b)'s device-coded codeblocks: its bands from the device
+    analysis, cut into the codec's 64x64 grid, even-sized blocks only."""
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(arr.astype(np.int32), -1, 0)[:, None])).cuda()
+    bands = pipeline.analysis(x, numres=6, reversible=True, mct=1, prec=8,
+                              sgnd=False)
+    blocks = []
+    for v in bands.values():
+        for c in range(v.shape[0]):
+            band = v[c, 0]
+            h, w = band.shape
+            for y in range(0, h, 64):
+                for x0 in range(0, w, 64):
+                    b = band[y:y + 64, x0:x0 + 64]
+                    if b.shape[0] % 2 == 0 and b.shape[1] % 2 == 0:
+                        blocks.append(b)
+    return blocks
+
+
+def time_once(fn) -> float:
+    """Host-clock ms of one call of a long run (the twins), synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t)
+
+
+def time_ht(blocks, ht_encode, ht_decode, err):
+    """The HT kernels and their twins on case (b)'s codeblock population:
+    kernel per launch and amortised, the wrapper with its copies and host
+    work, the twin once on the card's tensors; bounds from the bytes.
+    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cpu = [b.cpu() for b in blocks]
+    samples = sum(b.numel() for b in blocks)
+    args = ht_encode.encode_args(blocks, dev)
+    k_enc = time_ms(lambda: ht_encode.launch_encode(args, dev))
+    stream_bytes = int(args[2].item())
+    w_enc = time_once(lambda: ht_encode.encode_cblks_ht(blocks))
+    segs = ht_encode.encode_cblks_ht(blocks)
+    p_enc = time_once(lambda: ht_encode.encode_cblks_ht_plain(blocks))
+    err["ht_encode"] = max(err["ht_encode"], seg_err(
+        segs, ht_encode.encode_cblks_ht_plain(cpu)))
+    items = [(s, *b.shape) for (s, _), b in zip(segs[0], blocks)]
+    outs = [torch.empty(b.shape, dtype=torch.int32, device=dev)
+            for b in blocks]
+    dargs = ht_decode.decode_args(items, dev, outs)
+    k_dec = time_ms(lambda: ht_decode.launch_decode(dargs, dev))
+    desc = dargs[0].cpu().numpy()
+    in_bytes = int(desc[:, 5::2].sum())
+    w_dec = time_once(lambda: ht_decode.decode_cblks_ht(items, dev))
+    p_dec = time_once(lambda: ht_decode.decode_cblks_ht_plain(items, dev))
+    want = ht_decode.decode_cblks_ht_plain(items, "cpu")
+    err["ht_decode"] = max([err["ht_decode"]] + [
+        max_err(o.cpu(), w) for o, w in zip(outs, want)])
+    times = {}
+    for name, (k_single, k_amort), wrapper, plain, nbytes in (
+            ("ht_encode", k_enc, w_enc, p_enc, 4 * samples + stream_bytes),
+            ("ht_decode", k_dec, w_dec, p_dec, in_bytes + 4 * samples)):
+        bound = 1e3 * nbytes / PEAK_BYTES_S
+        log(f"time {name:24s} {len(blocks)} codeblocks, {samples} samples, "
+            f"{nbytes} B: kernel {k_single:.4f} ms per launch, "
+            f"{k_amort:.4f} ms amortised; wrapper (copies, host "
+            f"stuffing/destuffing) {wrapper:.1f} ms; twin on the card "
+            f"{plain:.1f} ms; bound {bound:.4f} ms (bytes)")
+        times[name] = (k_amort, plain, bound, "bytes")
+    return times
+
+
+class Timed:
+    """Accumulate the host-clock ms of calls to module attributes, each
+    call ending in a synchronize, while the context is open."""
+
+    def __init__(self, **targets):
+        self.targets = targets  # label -> (owner, attribute name)
+        self.ms = dict.fromkeys(targets, 0.0)
+        self.saved = {}
+
+    def __enter__(self):
+        for label, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self.saved[label] = fn
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.ms[_label] += 1e3 * (time.perf_counter() - t)
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self.saved[label])
+
+
+def tier1_breakdown(arr, kw, data):
+    """Case (b)'s Tier-1 split: card HT (kernel and copies, and the host
+    stuffing or destuffing around it) against host HT on the native coder,
+    over one encode and one decode."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, GrkImage
+    from grok_tpu_torch.ops import ht_decode, ht_encode
+    from grok_tpu_torch.t1 import backend as t1
+
+    native = t1._HT_NATIVE
+    holder = type("NativeHT", (), {"encode": staticmethod(native[0]),
+                                   "decode": staticmethod(native[1])})
+    t1._HT_NATIVE = (lambda *a, **k: holder.encode(*a, **k),
+                     lambda *a, **k: holder.decode(*a, **k))
+    try:
+        with Timed(card=(t1, "_encode_ht_device"),
+                   stuffing=(ht_encode, "assemble_segments"),
+                   host=(holder, "encode")) as enc:
+            grok_tpu_torch.compress(GrkImage.from_array(arr),
+                                    CompressParams(**kw))
+        with Timed(card=(t1, "_decode_ht_device"),
+                   destuffing=(ht_decode, "prepare"),
+                   host=(holder, "decode")) as dec:
+            grok_tpu_torch.decompress(data)
+    finally:
+        t1._HT_NATIVE = native
+    log(f"stages (b) Tier-1 ms: encode card HT {enc.ms['card']:.1f} (kernel "
+        f"and copies {enc.ms['card'] - enc.ms['stuffing']:.1f}, host "
+        f"stuffing and assembly {enc.ms['stuffing']:.1f}), host HT "
+        f"{enc.ms['host']:.1f}; decode card HT {dec.ms['card']:.1f} (kernel "
+        f"and copies {dec.ms['card'] - dec.ms['destuffing']:.1f}, host "
+        f"destuffing and packing {dec.ms['destuffing']:.1f}), host HT "
+        f"{dec.ms['host']:.1f}")
+
+
 # ------------------------------------------------------------------ timing
 
 def time_ms(fn) -> tuple[float, float]:
@@ -266,25 +473,32 @@ def codec_case(name, arr, kw, expect, counters, exact=None):
     route (its twins on the CPU) and its host route (backend="native"),
     the decode against the input, and the launch and host-path counters
     (every counter in `expect` risen; `exact`, if given, the counts
-    exactly).  Returns the launch counts."""
+    exactly).  Returns the launch counts and the encoded bytes."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
     from grok_tpu_torch.kernels import LAUNCHES, reset_launches
+    from grok_tpu_torch.t1.backend import DEVICE_CODEBLOCKS
     from grok_tpu_torch.tile.processor import HOST_PATH_TILES
 
     img = GrkImage.from_array(arr)
     pixels = arr.shape[0] * arr.shape[1]
 
+    t = time.perf_counter()
     plain = grok_tpu_torch.compress(img, CompressParams(**kw), device="cpu")
+    plain_s = time.perf_counter() - t
+    log(f"case {name}: the plain route (twins on the CPU) encoded in "
+        f"{plain_s:.1f} s" + (" (more than 60 s)" if plain_s > 60 else ""))
     host = grok_tpu_torch.compress(img, CompressParams(backend="native",
                                                        **kw))
     reset_launches()
-    for k in HOST_PATH_TILES:
-        HOST_PATH_TILES[k] = 0
+    for counts in (HOST_PATH_TILES, DEVICE_CODEBLOCKS):
+        for k in counts:
+            counts[k] = 0
     data = grok_tpu_torch.compress(img, CompressParams(**kw))
     out = grok_tpu_torch.decompress(data)
     counts = dict(LAUNCHES)
     host_tiles = dict(HOST_PATH_TILES)
+    blocks = dict(DEVICE_CODEBLOCKS)
     for ref, route in ((plain, "plain route"), (host, "host route")):
         if data != ref:
             raise AssertionError(f"case {name}: codestream differs from the "
@@ -303,6 +517,12 @@ def codec_case(name, arr, kw, expect, counters, exact=None):
     log(f"case {name}: {len(data)} bytes identical to the plain and host "
         f"routes, decode bit-exact, launches {counts}, host-path tiles "
         f"{host_tiles}")
+    log(f"case {name}: codeblocks through Tier-1 under backend=device: "
+        f"encode {blocks['encode_device']} on the card, "
+        f"{blocks['encode_host']} on the native coder; decode "
+        f"{blocks['decode_device']} on the card, {blocks['decode_host']} "
+        f"on the native coder; e0 summed on the host for "
+        f"{blocks['e0_host']}")
 
     def encode(backend):
         def run():
@@ -325,7 +545,7 @@ def codec_case(name, arr, kw, expect, counters, exact=None):
         f"(backend=native): encode {pixels / enc_ref / 1e6:.2f} MP/s "
         f"({enc_ref * 1e3:.1f} ms), decode {pixels / dec_ref / 1e6:.2f} MP/s "
         f"({dec_ref * 1e3:.1f} ms); {counters}")
-    return counts
+    return counts, data
 
 
 def turns(ref, port) -> tuple[float, float]:
@@ -383,7 +603,11 @@ def main() -> int:
         return 1
     import grok_tpu_torch  # noqa: F401  (fails outside a checkout)
     from grok_tpu_torch.kernels import LAUNCHES, build
-    from grok_tpu_torch.ops import dwt, mct
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_ht_cases  # the HT inputs the tests use
+    from grok_tpu_torch.ops import dwt, ht_decode, ht_encode, mct, pipeline
+    from grok_tpu_torch.t1 import ht_tables
 
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
@@ -406,31 +630,39 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err = check_levels(gen, dwt)
     err.update(check_rct(gen, mct))
+    err.update(check_ht(ht_encode, ht_decode, ht_tables, torch_ht_cases))
     torch.cuda.synchronize()
     log(f"kernel vs twin max abs err: {err}")
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their twins: {err}")
     times = time_kernels(gen, dwt, mct)
+    uhd = make_rgb(*UHD, seed=SEED)
+    times.update(time_ht(ht_population(uhd, pipeline), ht_encode, ht_decode,
+                         err))
+    if any(err.values()):
+        raise AssertionError(f"kernels disagree with their twins: {err}")
 
     lift = ("fwd53_level", "inv53_level")
-    every = lift + ("rct_forward_shift", "rct_inverse_unshift")
+    transforms = lift + ("rct_forward_shift", "rct_inverse_unshift")
+    every = transforms + ("ht_encode", "ht_decode")
     if set(LAUNCHES) != set(every):
         raise AssertionError(f"launch counters {sorted(LAUNCHES)}, "
                              f"expected {sorted(every)}")
     card_note = f"card {card}"
     codec_case("a config-1 512x512 gray MQ", make_image(),
                dict(numresolution=6), lift, card_note)
-    uhd = make_rgb(*UHD, seed=SEED)
-    # the main path: one launch of each level kernel a level, five levels
-    counts = codec_case("b 3840x2160 RGB HT lossless", uhd,
-                        dict(numresolution=6, ht=True), every, card_note,
-                        exact={"fwd53_level": 5, "inv53_level": 5,
-                               "rct_forward_shift": 1,
-                               "rct_inverse_unshift": 1})
+    # the main path: one launch of each level kernel a level, five levels,
+    # and one of each HT kernel for the tile's even codeblocks
+    kw_b = dict(numresolution=6, ht=True)
+    counts, data_b = codec_case(
+        "b 3840x2160 RGB HT lossless", uhd, kw_b, every, card_note,
+        exact={"fwd53_level": 5, "inv53_level": 5, "rct_forward_shift": 1,
+               "rct_inverse_unshift": 1, "ht_encode": 1, "ht_decode": 1})
     codec_case("c 2048x2048 RGB 512^2 tiles MQ", make_rgb(2048, 2048, SEED),
-               dict(numresolution=6, tile_size=(512, 512)), every,
+               dict(numresolution=6, tile_size=(512, 512)), transforms,
                card_note)
     stage_breakdown(uhd)
+    tier1_breakdown(uhd, kw_b, data_b)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))
     if loaded:
@@ -446,11 +678,16 @@ def main() -> int:
                               "grok_tpu/ops/mct.py:92"),
         "rct_inverse_unshift": ("grok_tpu_torch/csrc/rct.cu",
                                 "grok_tpu/ops/mct.py:130"),
+        "ht_encode": ("grok_tpu_torch/csrc/ht_encode.cu",
+                      "grok_tpu/ops/ht_encode.py:247"),
+        "ht_decode": ("grok_tpu_torch/csrc/ht_decode.cu",
+                      "grok_tpu/ops/ht_decode.py:194"),
     }
     for name in every:
         source, tpu = replaces[name]
         ms, plain_ms, bound_ms, bound_by = times[name]
-        # no single PyTorch call computes a 5/3 level or the fused RCT
+        # no single PyTorch call computes a 5/3 level, the fused RCT or an
+        # HT cleanup pass
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": tpu, "launches": counts[name],
                         "max_abs_err": err[name], "ms": ms,

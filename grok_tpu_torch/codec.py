@@ -2,9 +2,10 @@
 
 The same entry points as grok_tpu/codec.py, writing the same codestreams.
 They run on the card unless the caller asks otherwise: `backend="device"`
-(the default) runs the sample transforms on `device` ("cuda" by default,
-which raises where there is no CUDA device; "cpu" runs the kernels' plain
-PyTorch versions) and Tier-1 and Tier-2 on the native host coder;
+(the default) runs on `device` ("cuda" by default, which raises where there
+is no CUDA device; "cpu" runs the kernels' plain PyTorch versions) the
+sample transforms and the HT cleanup pass of every even-sized HT codeblock,
+and on the native host coder the MQ and ragged HT codeblocks and Tier-2;
 `backend="native"` is the host route.  The strip, file and stream variants
 are not ported yet (ROADMAP A14).
 """

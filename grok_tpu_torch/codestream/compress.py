@@ -7,7 +7,8 @@ compression, emits tile-parts (SOT..SOD..data), rewrites TLM at the end,
 terminates with EOC.
 
 grok_tpu's driver with the port's tile processor: with a device, all
-uniform full-size tiles go through one batched device analysis.  The
+uniform full-size tiles go through one batched device analysis, and each
+tile's HT codeblocks through one launch of the device HT encoder.  The
 strip-reader and file-sink variants are not ported yet (ROADMAP A14), and
 neither is the multi-device mesh (ROADMAP A13).
 """

@@ -6,8 +6,10 @@ header parse into CodingParams, SOT/SOD tile-part scan, per-tile header
 overrides (COD/COC/QCD/QCC/POC/RGN), PPM/PPT packed headers, tolerant
 "non-strict" mode for truncated/corrupt streams, TLM-based tile seeking.
 
-With a `device`, the synthesis of eligible tiles runs there (the port's
-tile processor); with several uniform tiles, in one batched call.  The
+With a `device`, each tile's HT codeblocks decode there (one launch of the
+device HT decoder a tile) and the synthesis of eligible tiles runs there
+(the port's tile processor), with several uniform tiles in one batched
+call.  The
 multi-device mesh (ROADMAP A13) and the strip decode with its deferred
 device planes (ROADMAP A14) are not ported yet.
 """
@@ -73,8 +75,8 @@ class HeaderInfo:
 
 class CodestreamDecoder:
     """Parses a raw .j2k codestream and decodes tiles on demand.  `device`
-    is where the synthesis of eligible tiles runs when the decode asks for
-    backend="device" (None: on the host)."""
+    is where HT Tier-1 and the synthesis of eligible tiles run when the
+    decode asks for backend="device" (None: on the host)."""
 
     def __init__(self, data: bytes, strict: bool = False,
                  device: torch.device | None = None):

@@ -16,7 +16,7 @@ from . import build
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("fwd53_level", "inv53_level", "rct_forward_shift",
-     "rct_inverse_unshift"), 0)
+     "rct_inverse_unshift", "ht_encode", "ht_decode"), 0)
 
 
 def reset_launches() -> None:

@@ -34,6 +34,11 @@ _SIGNATURES = {
     "grk_rct_fwd": (_P,) * 6 + (_I, _I, _P),
     # y, cb, cr, r, g, b, count, prec, sgnd, stream
     "grk_rct_inv": (_P,) * 6 + (_I, _I, _I, _P),
+    # desc, enc_cwd, enc_len, pool, pool_used, meta, nblocks, pool_cap,
+    # stream
+    "grk_ht_encode": (_P,) * 6 + (_I, _I, _P),
+    # desc, pool, lut_rho, lut_len, nblocks, maxc, wrap_bits, stream
+    "grk_ht_decode": (_P,) * 4 + (_I, _I, _I, _P),
 }
 
 

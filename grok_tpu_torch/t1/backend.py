@@ -1,15 +1,20 @@
-"""Tier-1 backend dispatch: python reference / native C++.
+"""Tier-1 backend dispatch: python reference / native C++ / device.
 
 Parity: T1Interface / T1Factory (SURVEY.md §2.1 "Tier-1 interface").  The
 reference dispatches per codeblock between MQ and HT coders; we additionally
 dispatch between implementations:
 
-- "python": the MQ implementation in t1/coder.py (correctness oracle); the
-  pure-Python HT coder is not ported (ROADMAP A14)
+- "python": the reference implementation in t1/coder.py (MQ) and t1/ht.py
+  (HT), always available, the correctness oracle
 - "native": C++ batch coder (native/t1.cc via ctypes), threads across
-  codeblocks — the production host path.  "auto" and "device" code on it
-  too: device Tier-1 is not ported yet (ROADMAP A8-A12), so the device
-  backend runs the transforms on the card and Tier-1 here
+  codeblocks — the production host path; "auto" resolves to it
+- "device": HT codeblocks with even height and width (and, on encode,
+  numbps_bound <= 25) go through the HT cleanup kernels on the torch device
+  the tile processor passes in (ops/ht_encode.py, ops/ht_decode.py: the
+  CUDA kernels on a card, their plain twins on the CPU), exactly the blocks
+  grok_tpu's device routers take.  Ragged HT blocks, and every MQ block
+  until the MQ device coders are ported (ROADMAP A11/A12), code on the
+  native coder.
 
 Batch API: lists of codeblock jobs so the native backend can parallelize
 freely (SURVEY.md §2.3 "codeblock-batch axis").
@@ -17,9 +22,11 @@ freely (SURVEY.md §2.3 "codeblock-batch axis").
 
 from __future__ import annotations
 
+from collections import defaultdict
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..params import CblkStyle
 from . import coder as pycoder
@@ -74,9 +81,19 @@ class LazyPasses:
         return iter(self._list())
 
 
+# codeblocks coded through encode_batch / decode_batch under
+# backend="device", by direction and coder: "device" is the HT kernels (or
+# their twins on the CPU), "host" the native or Python coder; "e0_host"
+# counts device-coded blocks whose distortion e0 was summed on the host
+# (sum of squares above 2^53, see _e0)
+DEVICE_CODEBLOCKS: dict[str, int] = dict.fromkeys(
+    ("encode_device", "encode_host", "decode_device", "decode_host",
+     "e0_host"), 0)
+
+
 @dataclass
 class EncodeJob:
-    coeffs: np.ndarray
+    coeffs: np.ndarray        # numpy, or a torch view into a band tensor
     orient: int
     style: CblkStyle
     ht: bool = False          # Part 15 HT block coder instead of MQ
@@ -130,6 +147,10 @@ class DecodeJob:
     # direct_done; other backends ignore it and fill `out` as usual
     out_dest: np.ndarray | None = None
     direct_done: bool = False
+    # optional (h, w) int32 torch view into a device band tensor: the
+    # device HT decoder writes the block there and sets device_done
+    out_device: torch.Tensor | None = None
+    device_done: bool = False
 
 
 def _encode_python(jobs: list[EncodeJob], num_threads: int = 0) -> None:
@@ -166,33 +187,161 @@ def _load_native() -> bool:
 
 
 def resolve(backend: str = "device") -> str:
-    # "device" refers to the transform pipeline; T1 entropy coding runs on
-    # the native host backend in that mode (SURVEY.md §7 device/host split)
+    # the host coder of a backend: "device" codes its MQ and ragged HT
+    # blocks on the native coder (SURVEY.md §7 device/host split)
     if backend in ("auto", "native", "device") and _load_native():
         return "native"
     return "python"
 
 
-_NO_PY_HT = ("the pure-Python HT block coder (grok_tpu/t1/ht.py) is not "
-             "ported: ROADMAP A14; HT codes on the native coder")
-
-
 def _encode_ht(jobs: list[EncodeJob]) -> None:
-    raise NotImplementedError(_NO_PY_HT)
+    from ..t1.coder import PassInfo
+    from . import ht
+
+    for j in jobs:
+        j.data, j.numbps = ht.encode_cblk_ht(j.coeffs)
+        if j.numbps == 0:
+            j.passes = []
+        else:
+            # HTONLY: one cleanup pass carrying everything
+            e0 = float((np.abs(j.coeffs).astype(np.float64) ** 2).sum())
+            j.passes = [PassInfo(2, j.numbps - 1, True, len(j.data), e0)]
 
 
 def _decode_ht(jobs: list[DecodeJob]) -> None:
-    raise NotImplementedError(_NO_PY_HT)
+    from . import ht
+
+    for j in jobs:
+        j.out = ht.decode_cblk_ht(j.data, j.h, j.w)
+
+
+def ht_device_eligible(h: int, w: int, numbps_bound: int = 0) -> bool:
+    """The HT blocks grok_tpu's device routers take: even height and width
+    and, on encode, numbps_bound <= MAX_NUMBPS_DEVICE (25)."""
+    from ..ops.ht_encode import MAX_NUMBPS_DEVICE
+
+    return h % 2 == 0 and w % 2 == 0 and numbps_bound <= MAX_NUMBPS_DEVICE
+
+
+def _on_device(arrs, device: torch.device) -> list[torch.Tensor]:
+    """The codeblocks as int32 tensors on `device`: torch views stay where
+    they are (bands already on the device are read in place); numpy blocks
+    go up stacked, one copy a shape."""
+    out: list = [None] * len(arrs)
+    host: dict = defaultdict(list)
+    for i, a in enumerate(arrs):
+        if isinstance(a, torch.Tensor):
+            out[i] = a.to(device)
+        else:
+            host[a.shape].append(i)
+    for idx in host.values():
+        stack = torch.from_numpy(np.stack(
+            [np.asarray(arrs[i], dtype=np.int32) for i in idx])).to(device)
+        for i, t in zip(idx, stack):
+            out[i] = t
+    return out
+
+
+_EXACT_F64 = 1 << 53
+
+
+def _e0(j: EncodeJob, sumsq: int) -> float:
+    """A block's distortion e0 as grok_tpu computes it (numpy float64 sum of
+    squared magnitudes).  Below 2^53 every partial sum is exact, so the
+    kernel's exact integer sum rounded once equals it; above, numpy's
+    pairwise order may round otherwise, and the block is summed here."""
+    if sumsq <= _EXACT_F64:
+        return float(sumsq)
+    DEVICE_CODEBLOCKS["e0_host"] += 1
+    c = j.coeffs
+    c = c.cpu().numpy() if isinstance(c, torch.Tensor) else np.asarray(c)
+    return float((np.abs(c).astype(np.float64) ** 2).sum())
+
+
+def _encode_ht_device(jobs: list[EncodeJob],
+                      device: torch.device) -> list[EncodeJob]:
+    """Code the device-eligible HT jobs in one call of the cleanup encoder
+    (mixed shapes together); returns the jobs left for the host coder."""
+    from ..ops import ht_encode as dht
+    from ..t1.coder import PassInfo
+
+    dev: list[EncodeJob] = []
+    rest: list[EncodeJob] = []
+    for j in jobs:
+        h, w = j.coeffs.shape
+        (dev if ht_device_eligible(h, w, j.numbps_bound)
+         else rest).append(j)
+    if dev:
+        segs, sumsq = dht.encode_cblks_ht(
+            _on_device([j.coeffs for j in dev], device))
+        for j, (seg, nb), ss in zip(dev, segs, sumsq):
+            j.data, j.numbps = seg, nb
+            j.e0_out = _e0(j, ss) if nb else 0.0
+            j.passes = ([PassInfo(2, nb - 1, True, len(seg), j.e0_out)]
+                        if nb else [])
+    DEVICE_CODEBLOCKS["encode_device"] += len(dev)
+    return rest
+
+
+def _decode_ht_device(jobs: list[DecodeJob],
+                      device: torch.device) -> list[DecodeJob]:
+    """Decode the even-dim HT jobs in one call of the cleanup decoder
+    (mixed shapes together: one batch, as grok_tpu's router makes, which
+    corrupt streams depend on).  A job with `out_device` is written there;
+    the others come back to the host in one copy.  Returns the jobs left
+    for the host decoder."""
+    from ..ops import ht_decode as dht
+
+    dev: list[DecodeJob] = []
+    rest: list[DecodeJob] = []
+    for j in jobs:
+        (dev if ht_device_eligible(j.h, j.w) else rest).append(j)
+    if dev:
+        back = [j for j in dev if j.out_device is None]
+        flat = torch.empty(sum(j.h * j.w for j in back), dtype=torch.int32,
+                           device=device)
+        outs, k = [], 0
+        for j in dev:
+            if j.out_device is None:
+                outs.append(flat[k:k + j.h * j.w].view(j.h, j.w))
+                k += j.h * j.w
+            else:
+                outs.append(j.out_device)
+        dht.decode_cblks_ht([(j.data, j.h, j.w) for j in dev], device, outs)
+        host = flat.cpu().numpy()
+        k = 0
+        for j in dev:
+            if j.out_device is None:
+                j.out = host[k:k + j.h * j.w].reshape(j.h, j.w)
+                k += j.h * j.w
+            else:
+                j.device_done = True
+    DEVICE_CODEBLOCKS["decode_device"] += len(dev)
+    return rest
+
+
+def _need_device(device) -> torch.device:
+    if device is None:
+        raise ValueError("backend='device' needs the torch device to code "
+                         "on")
+    return torch.device(device)
 
 
 def encode_batch(jobs: list[EncodeJob], backend: str = "device",
-                 num_threads: int = 0) -> None:
+                 num_threads: int = 0, device=None) -> None:
     """num_threads sizes the native thread pool (-H parity; 0 = all
     cores).  Output is byte-identical for any thread count — jobs are
     independent and land in per-job buffers (the reference's determinism
-    invariant, SURVEY.md §4)."""
+    invariant, SURVEY.md §4).  `device` is where backend="device" codes
+    its HT blocks."""
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]
+    if ht_jobs and backend == "device":
+        for j in ht_jobs:
+            _materialize_quant(j)
+        ht_jobs = _encode_ht_device(ht_jobs, _need_device(device))
+    if backend == "device":
+        DEVICE_CODEBLOCKS["encode_host"] += len(ht_jobs) + len(mq_jobs)
     if ht_jobs:
         name = resolve(backend)
         for j in ht_jobs:  # native HT ingest has no fused quantizer
@@ -211,9 +360,13 @@ def encode_batch(jobs: list[EncodeJob], backend: str = "device",
 
 
 def decode_batch(jobs: list[DecodeJob], backend: str = "device",
-                 num_threads: int = 0) -> None:
+                 num_threads: int = 0, device=None) -> None:
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]
+    if ht_jobs and backend == "device":
+        ht_jobs = _decode_ht_device(ht_jobs, _need_device(device))
+    if backend == "device":
+        DEVICE_CODEBLOCKS["decode_host"] += len(ht_jobs) + len(mq_jobs)
     if ht_jobs:
         name = resolve(backend)
         if name == "native" and _HT_NATIVE is not None and \

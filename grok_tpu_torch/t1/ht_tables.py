@@ -19,8 +19,9 @@ framing, MagSgn packing, u-prediction — follows the spec structure and
 is pinned by frozen golden vectors (tests/test_ht_tables.py), so
 swapping in the normative tables is a change to THIS module only:
 
-    set_tables(enc_cwd, enc_len) -> the native C++ coder picks up the
-    new code (the pure-Python HT coder is not ported: ROADMAP A14).
+    set_tables(enc_cwd, enc_len) -> all three coder paths (Python
+    reference, native C++, the CUDA kernels with their plain twins) pick
+    up the new code.
 
 Variable-length prefix codes up to MAX_CWD_LEN (= 7, the T.814 maximum)
 bits are supported: every context's 16 (rho -> codeword, length) entries
@@ -69,10 +70,26 @@ DEC_LUT_RHO, DEC_LUT_LEN = _build_dec_lut(ENC_CWD, ENC_LEN)
 # callbacks run on table swap (the native installer)
 _listeners: list = []
 
+# modules holding the card's copies of the tables (ops/ht_encode.py and
+# ops/ht_decode.py, each a _DEVICE_TABLES dict keyed by torch device)
+_DEVICE_TABLE_MODULES = ("grok_tpu_torch.ops.ht_encode",
+                         "grok_tpu_torch.ops.ht_decode")
+
 
 def on_swap(fn) -> None:
     _listeners.append(fn)
     fn()  # apply current tables immediately
+
+
+def _flush_device_caches() -> None:
+    # the kernels take the tables as device tensors, uploaded once per
+    # device; drop those copies so the next launch uploads the new set
+    import sys
+
+    for name in _DEVICE_TABLE_MODULES:
+        mod = sys.modules.get(name)
+        if mod is not None:
+            mod._DEVICE_TABLES.clear()
 
 
 def set_tables(enc_cwd, enc_len) -> None:
@@ -104,6 +121,7 @@ def set_tables(enc_cwd, enc_len) -> None:
                         f"prefix-free")
     ENC_CWD, ENC_LEN = enc_cwd, enc_len
     DEC_LUT_RHO, DEC_LUT_LEN = _build_dec_lut(enc_cwd, enc_len)
+    _flush_device_caches()
     for fn in _listeners:
         fn()
 

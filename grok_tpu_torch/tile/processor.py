@@ -7,11 +7,17 @@ the backend dispatch), PCRD rate allocation and Tier-2 packet assembly on
 compress; the mirror image on decompress.
 
 With a `device` set, eligible reversible tiles run their sample transforms
-on it through the port's pipeline (ops/pipeline.py: one host-to-device copy
-of the tile stack, one device-to-host copy per band, into C-contiguous int32
-numpy for the native Tier-1 coder).  Every other tile takes the numpy host
-path here and is counted in HOST_PATH_TILES.  Tier-1 runs on the native
-host coder either way (device Tier-1 is ROADMAP A8-A12).
+on it through the port's pipeline (ops/pipeline.py, one host-to-device copy
+of the tile stack).  Every other tile takes the numpy host path here and is
+counted in HOST_PATH_TILES.  Under backend="device" the HT codeblocks that
+grok_tpu's device routers take (even height and width, numbps_bound <= 25)
+are Tier-1 coded on the device too (t1/backend.py): a tile with HT blocks
+keeps its bands on the device, the HT encoder reads its codeblocks there in
+place, and a band goes to the host only for the blocks the native coder
+codes (MQ, ragged HT); on decode the HT decoder writes its blocks straight
+into device band tensors that the synthesis takes, and the native coder's
+blocks go up as small copies.  Tiles with only MQ blocks keep the
+whole-tile native Tier-1 calls and their host bands.
 """
 
 from __future__ import annotations
@@ -52,16 +58,19 @@ HOST_PATH_TILES: dict[str, int] = {"encode": 0, "decode": 0}
 
 
 def host_backend(backend: str) -> str:
-    """The Tier-1 backend for a requested codec backend: "device" selects
-    the device transforms, with Tier-1 on the native host coder.  Raises
-    if that coder does not load, rather than coding in pure Python."""
-    if backend != "device":
-        return backend
-    if t1_backend.resolve("native") != "native":
+    """The Tier-1 backend for a requested codec backend.  "device" stays
+    "device": the device transforms, device HT Tier-1, and the native host
+    coder for MQ and ragged HT blocks, which must load: where it does not,
+    this raises rather than coding those blocks in pure Python."""
+    if backend == "device" and t1_backend.resolve("native") != "native":
         raise RuntimeError(
-            "backend='device' runs Tier-1 on the native host coder, which "
-            "did not load")
-    return "native"
+            "backend='device' codes MQ and ragged HT codeblocks on the "
+            "native host coder, which did not load")
+    return backend
+
+
+def _ht_tile(tcp) -> bool:
+    return any(t.ht for t in tcp.tccps)
 
 
 # whole-tile encode scratch (arena + rates matrix), grown and reused per
@@ -402,9 +411,11 @@ class TileCompressor:
         # (its calibration re-decodes from per-codeblock state), as do
         # rate-quota early stop and ROI.
         self._enc_seq = None
+        ht_device = self.backend == "device" and _ht_tile(tcp)
         if (quota_scale is None
                 and not getattr(self.cp, "_has_quality_targets", False)
                 and t2._native is not None
+                and not ht_device
                 and t1_backend.resolve(self.backend) == "native"
                 and not any(t.roi_shift for t in tcp.tccps)
                 and self._run_t1_tile_native_enc(need_dist)):
@@ -421,6 +432,10 @@ class TileCompressor:
                     if band.rect.is_empty():
                         continue
                     coeffs = tc.data[(res.resno, band.orient)]
+                    # a band on the device goes to the host only if one of
+                    # its blocks codes there, and then once
+                    on_dev = isinstance(coeffs, torch.Tensor)
+                    host_band = None
                     # quantization + ROI upshift are deferred to the
                     # backend layer: the native coder fuses them into its
                     # coefficient ingest (one pass instead of two numpy
@@ -441,6 +456,17 @@ class TileCompressor:
                             # truncation where the energy is), HT elsewhere
                             use_ht = tccp.ht and not (mixed and res.resno == 0)
                             cblk.is_ht = use_ht
+                            if on_dev and not (
+                                    use_ht and not tccp.roi_shift
+                                    and t1_backend.ht_device_eligible(
+                                        cr.h, cr.w, band.numbps)):
+                                if host_band is None:
+                                    host_band = coeffs.cpu().numpy()
+                                sl = host_band[
+                                    cr.y0 - band.rect.y0:
+                                    cr.y1 - band.rect.y0,
+                                    cr.x0 - band.rect.x0:
+                                    cr.x1 - band.rect.x0]
                             # numpy views pass through (the native coders
                             # take strided input)
                             cap = 0
@@ -457,7 +483,8 @@ class TileCompressor:
                                 rate_cap=cap))
                             job_meta.append((compno, res.resno, band, cblk))
         t1_backend.encode_batch(jobs, self.backend,
-                                getattr(self, 'num_threads', 0))
+                                getattr(self, 'num_threads', 0),
+                                device=self.device)
         self._t1_jobs = list(zip(jobs, job_meta))
         self._t1_need_dist = need_dist
         for job, meta in self._t1_jobs:
@@ -988,7 +1015,8 @@ class TileCompressor:
             job.hull_slope_arr = None
             job.hull_rate_arr = None
         t1_backend.encode_batch([j for j, _ in redo], self.backend,
-                                getattr(self, 'num_threads', 0))
+                                getattr(self, 'num_threads', 0),
+                                device=self.device)
         for job, meta in redo:
             self._ingest_t1_job(job, meta, self._t1_need_dist)
         # re-encoding changed pass rates/numbps: the native Tier-2
@@ -1124,7 +1152,8 @@ class TileCompressor:
                 cblk._style, ht=cblk._ht))
             meta.append(cblk)
         t1_backend.decode_batch(jobs, self.backend,
-                                getattr(self, 'num_threads', 0))
+                                getattr(self, 'num_threads', 0),
+                                device=self.device)
         decoded = {id(c): j.out for j, c in zip(jobs, meta)}
 
         total_err = 0.0
@@ -1709,7 +1738,8 @@ def _uniform_batch(tiles, eligible) -> bool:
 
 def _analyse(tcs: list[TileCompressor]) -> None:
     """Device analysis of a uniform batch of tiles; installs each tile
-    component's bands as host int32 arrays."""
+    component's bands: device tensors for a tile whose HT blocks code on
+    the device, host int32 arrays otherwise."""
     first = tcs[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
@@ -1726,10 +1756,13 @@ def _analyse(tcs: list[TileCompressor]) -> None:
         torch.from_numpy(stack).to(first.device),
         numres=first.tcp.tccps[0].numresolutions, reversible=True,
         mct=first.tcp.mct, prec=comp0.prec, sgnd=comp0.sgnd)
-    host = {k: v.cpu().numpy() for k, v in bands.items()}
+    keep = [t.backend == "device" and _ht_tile(t.tcp) for t in tcs]
+    host = ({k: v.cpu().numpy() for k, v in bands.items()}
+            if not all(keep) else None)
     for bi, t in enumerate(tcs):
+        src = bands if keep[bi] else host
         for compno, tc in enumerate(t.tile.comps):
-            tc.data = {k: v[compno, bi] for k, v in host.items()}
+            tc.data = {k: v[compno, bi] for k, v in src.items()}
         t._transforms_done = True
 
 
@@ -1746,7 +1779,8 @@ def run_transforms_device_batched(tcs: list[TileCompressor]) -> bool:
 
 def _synthesise(tds: list["TileDecompressor"]) -> list[list[np.ndarray]]:
     """Device synthesis of a uniform batch of tiles: per tile, its
-    component planes."""
+    component planes.  Bands the HT decoder wrote on the device are taken
+    as they are; host bands go up."""
     first = tds[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
@@ -1754,6 +1788,11 @@ def _synthesise(tds: list["TileDecompressor"]) -> list[list[np.ndarray]]:
     for res in first.tile.comps[0].resolutions:
         for band in res.bands:
             key = (res.resno, band.orient)
+            if any(t._dev_bands is not None for t in tds):
+                bands[key] = torch.stack([torch.stack(
+                    [t._device_band((c,) + key) for t in tds])
+                    for c in range(ncomp)])
+                continue
             stack = np.array(
                 [[t._band_arrays[(c,) + key] for t in tds]
                  for c in range(ncomp)], dtype=np.int32)
@@ -1799,6 +1838,8 @@ class TileDecompressor:
         self.window = window  # canvas-coords decode region or None
         self.pkt_lens = pkt_lens  # PLT index: per-packet byte lengths
         self.num_threads = num_threads  # -H parity: native pool size
+        # device band tensors the HT decoder writes (see run_t1), or None
+        self._dev_bands = None
 
     def _packet_needed(self, pc) -> bool:
         """Does this packet contribute to the requested decode?  False only
@@ -2146,8 +2187,15 @@ class TileDecompressor:
         # With a decode window the arrays cover only the window's span of
         # each band (SURVEY.md §2.1 SparseBuffer role: O(window) memory).
         self._alloc_band_arrays()
+        self._dev_bands = None
         if self._run_t1_tile_native():
             return
+        if self.backend == "device" and _ht_tile(self.tcp) \
+                and self._device_eligible():
+            # the HT decoder writes into these; the synthesis takes them
+            self._dev_bands = {
+                k: torch.zeros(a.shape, dtype=torch.int32, device=self.device)
+                for k, a in self._band_arrays.items()}
         jobs = []
         meta = []
         mixed = getattr(self.cp, "ht_mixed", False)
@@ -2193,16 +2241,35 @@ class TileDecompressor:
                                     cblk.rect.y1 - crop.y0,
                                     cblk.rect.x0 - crop.x0:
                                     cblk.rect.x1 - crop.x0]
+                            if self._dev_bands is not None:
+                                job.out_device = self._dev_bands[key][
+                                    cblk.rect.y0 - crop.y0:
+                                    cblk.rect.y1 - crop.y0,
+                                    cblk.rect.x0 - crop.x0:
+                                    cblk.rect.x1 - crop.x0]
                             jobs.append(job)
                             meta.append((tc, res, band, cblk))
         t1_backend.decode_batch(jobs, self.backend,
-                                getattr(self, 'num_threads', 0))
+                                getattr(self, 'num_threads', 0),
+                                device=self.device)
         for job, (tc, res, band, cblk) in zip(jobs, meta):
-            if job.direct_done:
-                continue  # native backend wrote the band array in place
+            if job.device_done:
+                continue  # the device HT decoder wrote the device band
             key = (tc.compno, res.resno, band.orient)
             arr = self._band_arrays[key]
             crop = self._band_offsets[key]
+            if self._dev_bands is not None:
+                # a block the host coder decoded goes up on its own (the
+                # device tiles have no window, crop or ROI)
+                rows = slice(cblk.rect.y0 - crop.y0, cblk.rect.y1 - crop.y0)
+                cols = slice(cblk.rect.x0 - crop.x0, cblk.rect.x1 - crop.x0)
+                if not job.direct_done:
+                    arr[rows, cols] = job.out
+                self._dev_bands[key][rows, cols].copy_(
+                    torch.from_numpy(arr[rows, cols]))
+                continue
+            if job.direct_done:
+                continue  # native backend wrote the band array in place
             out = job.out
             shift = self.tcp.tccps[tc.compno].roi_shift
             if shift:
@@ -2235,6 +2302,8 @@ class TileDecompressor:
             return False
         if t1_backend.resolve(self.backend) != "native":
             return False
+        if self.backend == "device" and _ht_tile(self.tcp):
+            return False  # HT blocks decode on the device
         if any(t.roi_shift for t in self.tcp.tccps):
             return False
         recs, data, g_zb, g_isht, ncb_total, t1_statics = seq
@@ -2280,6 +2349,11 @@ class TileDecompressor:
                     self._band_arrays[key] = np.zeros(
                         (max(0, crop.h), max(0, crop.w)), dtype=np.int32)
                     self._band_offsets[key] = crop
+
+    def _device_band(self, key) -> torch.Tensor:
+        if self._dev_bands is not None:
+            return self._dev_bands[key]
+        return torch.from_numpy(self._band_arrays[key]).to(self.device)
 
     def _device_eligible(self) -> bool:
         tile, tcp, image = self.tile, self.tcp, self.image

@@ -7,14 +7,18 @@ machine with an NVIDIA Hopper GPU and nvcc with
 
 (`--noconftest`: tests/conftest.py imports jax, which such a machine may
 not have.)  Every kernel must equal its twin bit for bit (tolerance 0:
-integer arithmetic, int32 wrap included) and count its launches.
+integer arithmetic, int32 wrap included; the HT coders byte for byte) and
+count its launches.
 """
 
+import numpy as np
 import pytest
 import torch
 
+import torch_ht_cases as cases
 from grok_tpu_torch.kernels import LAUNCHES, reset_launches
-from grok_tpu_torch.ops import dwt, mct, pipeline
+from grok_tpu_torch.ops import dwt, ht_decode, ht_encode, mct, pipeline
+from grok_tpu_torch.t1 import ht_tables
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +92,124 @@ def test_pipeline_on_card_matches_cpu(gen):
     back = pipeline.synthesis({k: 2 * v for k, v in bands.items()},
                               shape=(64, 48), **kw)
     assert torch.equal(back, x)
+
+
+# ------------------------------------------------------------ HT Tier-1
+
+def _ht_segments(rng, shapes, n=3):
+    """Segments of random blocks coded by the twin, as (data, h, w)."""
+    items = []
+    for h, w in shapes:
+        bl = torch.from_numpy(cases.blocks(rng, h, w, n=n, mag=1 << 15))
+        segs, _ = ht_encode.encode_cblks_ht_plain(list(bl))
+        items += [(s, h, w) for s, _ in segs]
+    return items
+
+
+def _decode_both(items):
+    """The kernel's and the twin's decode of `items`."""
+    got = ht_decode.decode_cblks_ht(items, "cuda")
+    ref = ht_decode.decode_cblks_ht_plain(items, "cpu")
+    return [g.cpu() for g in got], ref
+
+
+@pytest.mark.parametrize("shape", cases.ENC_SHAPES)
+def test_ht_encode_kernel_matches_twin(gen, shape):
+    """Byte-identical segments, numbps and sums of squares, at densities
+    0.05-0.95 and magnitudes up to 2^25 - 1."""
+    rng = np.random.default_rng(100 * shape[0] + shape[1])
+    bl = torch.from_numpy(cases.blocks(rng, *shape, n=8))
+    reset_launches()
+    got = ht_encode.encode_cblks_ht(list(bl.cuda()))
+    assert got == ht_encode.encode_cblks_ht_plain(list(bl))
+    assert LAUNCHES["ht_encode"] == 1
+
+
+def test_ht_encode_kernel_views_mixed_and_dense(gen):
+    """Blocks read in place from a band tensor (mixed shapes, one launch),
+    all-zero blocks and the 0xFF-dense stuffing case."""
+    rng = np.random.default_rng(3)
+    band = torch.from_numpy(rng.integers(-3000, 3000, (134, 200)).astype(
+        np.int32))
+    band[70:, 100:] = 0
+    views = [band[y:y + 64, x:x + 64] for y in (0, 64) for x in (0, 64, 128)]
+    views += [band[128:134, x:x + 8] for x in (0, 8, 192)]
+    views += list(torch.from_numpy(cases.dense_ff()))
+    dev = band.cuda()
+    dviews = [dev[y:y + 64, x:x + 64] for y in (0, 64) for x in (0, 64, 128)]
+    dviews += [dev[128:134, x:x + 8] for x in (0, 8, 192)]
+    dviews += list(torch.from_numpy(cases.dense_ff()).cuda())
+    reset_launches()
+    assert ht_encode.encode_cblks_ht(dviews) == \
+        ht_encode.encode_cblks_ht_plain(views)
+    assert LAUNCHES["ht_encode"] == 1
+
+
+def test_ht_kernels_on_1000_blocks(gen):
+    """A 64x64 batch of 1,000 blocks, both directions, one launch each."""
+    rng = np.random.default_rng(4)
+    bl = torch.from_numpy(cases.blocks(rng, 64, 64, n=1000, mag=1 << 12))
+    reset_launches()
+    got = ht_encode.encode_cblks_ht(list(bl.cuda()))
+    segs, sumsq = ht_encode.encode_cblks_ht_plain(list(bl))
+    assert got == (segs, sumsq)
+    items = [(s, 64, 64) for s, _ in segs]
+    out, ref = _decode_both(items)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    assert LAUNCHES["ht_encode"] == 1 and LAUNCHES["ht_decode"] == 1
+
+
+def test_ht_decode_kernel_matches_twin(gen):
+    """Mixed shapes in one launch, valid, corrupt and truncated streams,
+    written into views of a band tensor."""
+    rng = np.random.default_rng(5)
+    items = _ht_segments(rng, cases.DEC_SHAPES)
+    items += cases.corrupt(rng, items[:6])
+    out, ref = _decode_both(items)
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    # into views of one device band, in place, the rest untouched
+    band = torch.full((64, 96), 7, dtype=torch.int32, device="cuda")
+    dests = [band[0:32, 0:32], band[32:64, 0:12], band[0:10, 40:72]]
+    reset_launches()
+    ht_decode.decode_cblks_ht(items[:1] + items[4:5] + items[6:7], "cuda",
+                              dests)
+    assert LAUNCHES["ht_decode"] == 1
+    assert torch.equal(band[0:32, 0:32].cpu(), ref[0])
+    assert torch.equal(band[32:64, 0:12].cpu(), ref[4])
+    assert torch.equal(band[0:10, 40:72].cpu(), ref[6])
+    assert int((band[:, 72:] != 7).sum()) == 0
+
+
+@pytest.mark.parametrize("swap", ["fixed", "variable", "context"])
+def test_ht_kernels_take_swapped_tables(gen, swap):
+    """set_tables reaches the card's copy of the tables: both kernels equal
+    their twins under each table set, and the segments round-trip."""
+    rng = np.random.default_rng(6)
+    bl = torch.from_numpy(cases.blocks(rng, 16, 16, n=6, mag=900))
+    try:
+        ht_tables.set_tables(*cases.table_swaps()[swap])
+        got = ht_encode.encode_cblks_ht(list(bl.cuda()))
+        segs, sumsq = ht_encode.encode_cblks_ht_plain(list(bl))
+        assert got == (segs, sumsq)
+        items = [(s, 16, 16) for s, _ in segs]
+        items += cases.corrupt(rng, items[:2], n=6)
+        out, ref = _decode_both(items)
+        for o, r in zip(out, ref):
+            assert torch.equal(o, r)
+        for b, o in zip(bl, out):
+            exp = torch.where(b != 0, torch.sign(b) * (2 * b.abs() + 1), 0)
+            assert torch.equal(o, exp.to(torch.int32))
+    finally:
+        ht_tables.reset_tables()
+
+
+def test_ht_encode_kernel_refuses_out_of_range(gen):
+    """numbps above 25, INT32_MIN included, raises on both routes."""
+    for v in (1 << 25, -(2 ** 31)):
+        bl = torch.zeros((1, 8, 8), dtype=torch.int32)
+        bl[0, 3, 4] = v
+        for blocks in (list(bl), list(bl.cuda())):
+            with pytest.raises(ValueError, match="device HT range"):
+                ht_encode.encode_cblks_ht(blocks)

@@ -270,11 +270,13 @@ def test_from_reference_rebuilds_the_ports_types():
 
 
 def test_device_backend_needs_the_native_coder(monkeypatch):
-    """backend="device" codes Tier-1 on the native host coder; where it
-    does not load, the port raises instead of coding in pure Python."""
+    """backend="device" codes its MQ and ragged HT codeblocks on the native
+    host coder (the even HT ones on the device); where that coder does not
+    load, the port raises instead of coding them in pure Python."""
     from grok_tpu_torch.tile import processor
 
-    assert processor.host_backend("device") == "native"
+    assert processor.host_backend("device") == "device"
+    assert processor.t1_backend.resolve("device") == "native"
     assert processor.host_backend("python") == "python"
     monkeypatch.setattr(processor.t1_backend, "resolve", lambda b: "python")
     with pytest.raises(RuntimeError, match="native host coder"):
@@ -292,7 +294,8 @@ def test_cpu_runs_launch_nothing(rng):
                        reversible=True, mct=1, prec=8, sgnd=False,
                        shape=(16, 24))
     assert set(LAUNCHES) == {"fwd53_level", "inv53_level",
-                             "rct_forward_shift", "rct_inverse_unshift"}
+                             "rct_forward_shift", "rct_inverse_unshift",
+                             "ht_encode", "ht_decode"}
     assert all(v == 0 for v in LAUNCHES.values())
 
 
