@@ -8,7 +8,7 @@ a source, in parallel) and the native host coder from native/, holds each
 kernel bit-exact against its plain PyTorch twin on the card at the shapes
 the lossless 5/3 path gives it (the HT Tier-1 kernels byte for byte, on
 corrupt streams and under the three CxtVLC table swaps too), times kernel
-and twin (the HT pair on case (b)'s codeblock population), then drives
+and twin (the four HT kernels on case (b)'s codeblocks), then drives
 grok_tpu_torch.compress / decompress with their defaults (the card) on
 three cases:
 
@@ -204,6 +204,42 @@ def seg_err(a, b) -> int:
     return err if len(sa) == len(sb) else max(err, 256)
 
 
+def check_stages(ht_decode, items, err, dargs=None):
+    """The first two decode launches against the twin on `items`:
+    grk_ht_destuff's streams (bits and bit counts) and the batch's longest
+    (error: differing bits and counts), grk_ht_decode's rho and umax of
+    every quad (error: largest difference)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if dargs is None:
+        outs = [torch.empty((h, w), dtype=torch.int32, device=dev)
+                for _, h, w in items]
+        dargs = ht_decode.decode_args(items, dev, outs)
+    ht_decode.launch_destuff(dargs, dev)
+    ht_decode.launch_chains(dargs, dev)
+    desc, data, scratch, streams, longest, rho, umax = dargs[:7]
+    words = scratch.cpu().numpy().view(np.uint32).byteswap()
+    got_bits = np.unpackbits(words.view(np.uint8))
+    got = streams.cpu().numpy().reshape(-1, 2)
+    d = desc.cpu()
+    data = data.cpu()
+    bits, starts, nbits = ht_decode.destuff_streams(
+        data, *ht_decode.split_segments(data, d[:, 4], d[:, 5]))
+    bits, starts, nbits = bits.numpy(), starts.numpy(), nbits.numpy()
+    bad = int((got[:, 1] != nbits).sum())
+    bad += abs(int(longest.item()) - int(nbits.max(initial=0)))
+    for (off, n), s0 in zip(got.tolist(), starts.tolist()):
+        bad += int((got_bits[32 * off:32 * off + n]
+                    != bits[s0:s0 + n]).sum())
+    err["ht_destuff"] = max(err["ht_destuff"], bad)
+    rho_q, umax_q = ht_decode.quad_chains_plain(items)
+    rho, umax = rho.cpu().to(torch.int64), umax.cpu().to(torch.int64)
+    for i, (off, (_, h, w)) in enumerate(zip(d[:, 7].tolist(), items)):
+        nq = (h // 2) * (w // 2)
+        err["ht_decode"] = max(err["ht_decode"], max_err(
+            rho[off:off + nq], rho_q[i, :nq]), max_err(
+            umax[off:off + nq], umax_q[i, :nq]))
+
+
 def check_ht_pair(ht_encode, ht_decode, blocks, items, err):
     """Kernel against twin on numpy blocks (encode) and on their segments
     plus `items` (decode); the twins on the CPU."""
@@ -214,8 +250,9 @@ def check_ht_pair(ht_encode, ht_decode, blocks, items, err):
     items = [(s, *b.shape) for (s, _), b in zip(ref[0], blocks)] + items
     got = ht_decode.decode_cblks_ht(items, "cuda")
     want = ht_decode.decode_cblks_ht_plain(items, "cpu")
-    err["ht_decode"] = max([err["ht_decode"]] + [
+    err["ht_magsgn"] = max([err["ht_magsgn"]] + [
         max_err(g.cpu(), w) for g, w in zip(got, want)])
+    check_stages(ht_decode, items, err)
     return ref
 
 
@@ -226,7 +263,7 @@ def check_ht(ht_encode, ht_decode, ht_tables, cases):
     truncated streams, the three table swaps; and numbps above 25
     (INT32_MIN too) refused."""
     rng = np.random.default_rng(SEED)
-    err = {"ht_encode": 0, "ht_decode": 0}
+    err = {"ht_encode": 0, "ht_destuff": 0, "ht_decode": 0, "ht_magsgn": 0}
     blocks = [b for shape in cases.ENC_SHAPES + cases.DEC_SHAPES
               for b in cases.blocks(rng, *shape, n=8)]
     blocks += list(cases.dense_ff())
@@ -285,15 +322,17 @@ def time_once(fn) -> float:
 
 def time_ht(blocks, ht_encode, ht_decode, err):
     """The HT kernels and their twins on case (b)'s codeblock population:
-    kernel per launch and amortised, the wrapper with its copies and host
-    work, the twin once on the card's tensors; bounds from the bytes.
-    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    each kernel per launch and amortised, the wrapper with its copies and
+    host work, the twin once on the card's tensors; bounds from the bytes
+    of the work (encode: 4 B a coefficient in, the segment bytes out;
+    destuff: the segment bytes in; decode: 4 B a sample out; scratch not
+    counted).  Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
     dev = torch.device("cuda", torch.cuda.current_device())
     cpu = [b.cpu() for b in blocks]
     samples = sum(b.numel() for b in blocks)
     args = ht_encode.encode_args(blocks, dev)
     k_enc = time_ms(lambda: ht_encode.launch_encode(args, dev))
-    stream_bytes = int(args[2].item())
+    seg_bytes = int(args[2].item())
     w_enc = time_once(lambda: ht_encode.encode_cblks_ht(blocks))
     segs = ht_encode.encode_cblks_ht(blocks)
     p_enc = time_once(lambda: ht_encode.encode_cblks_ht_plain(blocks))
@@ -303,24 +342,40 @@ def time_ht(blocks, ht_encode, ht_decode, err):
     outs = [torch.empty(b.shape, dtype=torch.int32, device=dev)
             for b in blocks]
     dargs = ht_decode.decode_args(items, dev, outs)
-    k_dec = time_ms(lambda: ht_decode.launch_decode(dargs, dev))
-    desc = dargs[0].cpu().numpy()
-    in_bytes = int(desc[:, 5::2].sum())
+    k_des = time_ms(lambda: ht_decode.launch_destuff(dargs, dev))
+    k_dec = time_ms(lambda: ht_decode.launch_chains(dargs, dev))
+    k_mag = time_ms(lambda: ht_decode.launch_magsgn(dargs, dev))
+    k_all = time_ms(lambda: ht_decode.launch_decode(dargs, dev))
     w_dec = time_once(lambda: ht_decode.decode_cblks_ht(items, dev))
     p_dec = time_once(lambda: ht_decode.decode_cblks_ht_plain(items, dev))
     want = ht_decode.decode_cblks_ht_plain(items, "cpu")
-    err["ht_decode"] = max([err["ht_decode"]] + [
+    err["ht_magsgn"] = max([err["ht_magsgn"]] + [
         max_err(o.cpu(), w) for o, w in zip(outs, want)])
+    check_stages(ht_decode, items, err, dargs)
+    # destuffed bytes of the MagSgn streams, and of the MEL and VLC ones
+    bits = dargs[3].cpu().numpy()[:, 1::2]
+    ms_bytes = int(((bits[:, 0] + 7) // 8).sum())
+    suffix_bytes = int(((bits[:, 1:] + 7) // 8).sum())
+    quads = samples // 4
+    log(f"time ht_destuff+decode+magsgn  the three launches: "
+        f"{k_all[0]:.4f} ms per launch triple, {k_all[1]:.4f} ms amortised; "
+        f"bound {1e3 * (seg_bytes + 4 * samples) / PEAK_BYTES_S:.4f} ms "
+        f"(bytes: the segments in, 4 B a sample out)")
     times = {}
+    # each launch's bytes: its inputs read once, its outputs written once
     for name, (k_single, k_amort), wrapper, plain, nbytes in (
-            ("ht_encode", k_enc, w_enc, p_enc, 4 * samples + stream_bytes),
-            ("ht_decode", k_dec, w_dec, p_dec, in_bytes + 4 * samples)):
+            ("ht_encode", k_enc, w_enc, p_enc, 4 * samples + seg_bytes),
+            ("ht_destuff", k_des, w_dec, p_dec,
+             seg_bytes + ms_bytes + suffix_bytes),
+            ("ht_decode", k_dec, w_dec, p_dec, suffix_bytes + 5 * quads),
+            ("ht_magsgn", k_mag, w_dec, p_dec,
+             ms_bytes + 5 * quads + 4 * samples)):
         bound = 1e3 * nbytes / PEAK_BYTES_S
         log(f"time {name:24s} {len(blocks)} codeblocks, {samples} samples, "
-            f"{nbytes} B: kernel {k_single:.4f} ms per launch, "
-            f"{k_amort:.4f} ms amortised; wrapper (copies, host "
-            f"stuffing/destuffing) {wrapper:.1f} ms; twin on the card "
-            f"{plain:.1f} ms; bound {bound:.4f} ms (bytes)")
+            f"{seg_bytes} segment B, bound on {nbytes} B: kernel "
+            f"{k_single:.4f} ms per launch, {k_amort:.4f} ms amortised; "
+            f"wrapper (copies, descriptors, slicing) {wrapper:.1f} ms; twin "
+            f"on the card {plain:.1f} ms; bound {bound:.4f} ms (bytes)")
         times[name] = (k_amort, plain, bound, "bytes")
     return times
 
@@ -356,9 +411,10 @@ class Timed:
 
 
 def tier1_breakdown(arr, kw, data):
-    """Case (b)'s Tier-1 split: card HT (kernel and copies, and the host
-    stuffing or destuffing around it) against host HT on the native coder,
-    over one encode and one decode."""
+    """Case (b)'s Tier-1 split: card HT (the kernels, and the host work
+    left around them: descriptors and the upload on both sides, the copy
+    back and the slicing into segments on encode) against host HT on the
+    native coder, over one encode and one decode."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, GrkImage
     from grok_tpu_torch.ops import ht_decode, ht_encode
@@ -371,23 +427,28 @@ def tier1_breakdown(arr, kw, data):
                      lambda *a, **k: holder.decode(*a, **k))
     try:
         with Timed(card=(t1, "_encode_ht_device"),
-                   stuffing=(ht_encode, "assemble_segments"),
+                   args=(ht_encode, "encode_args"),
+                   kernel=(ht_encode, "launch_encode"),
+                   finish=(ht_encode, "finish_encode"),
                    host=(holder, "encode")) as enc:
             grok_tpu_torch.compress(GrkImage.from_array(arr),
                                     CompressParams(**kw))
         with Timed(card=(t1, "_decode_ht_device"),
-                   destuffing=(ht_decode, "prepare"),
+                   args=(ht_decode, "decode_args"),
+                   kernel=(ht_decode, "launch_decode"),
                    host=(holder, "decode")) as dec:
             grok_tpu_torch.decompress(data)
     finally:
         t1._HT_NATIVE = native
-    log(f"stages (b) Tier-1 ms: encode card HT {enc.ms['card']:.1f} (kernel "
-        f"and copies {enc.ms['card'] - enc.ms['stuffing']:.1f}, host "
-        f"stuffing and assembly {enc.ms['stuffing']:.1f}), host HT "
-        f"{enc.ms['host']:.1f}; decode card HT {dec.ms['card']:.1f} (kernel "
-        f"and copies {dec.ms['card'] - dec.ms['destuffing']:.1f}, host "
-        f"destuffing and packing {dec.ms['destuffing']:.1f}), host HT "
-        f"{dec.ms['host']:.1f}")
+    e, d = enc.ms, dec.ms
+    log(f"stages (b) Tier-1 ms: encode card HT {e['card']:.1f} (descriptors "
+        f"and upload {e['args']:.1f}, kernel {e['kernel']:.1f}, copies back "
+        f"and slicing into segments {e['finish']:.1f}, the rest of the "
+        f"router {e['card'] - e['args'] - e['kernel'] - e['finish']:.1f}), "
+        f"host HT {e['host']:.1f}; decode card HT {d['card']:.1f} (joining, "
+        f"descriptors and upload {d['args']:.1f}, kernels {d['kernel']:.1f}, "
+        f"the rest of the router {d['card'] - d['args'] - d['kernel']:.1f}), "
+        f"host HT {d['host']:.1f}")
 
 
 # ------------------------------------------------------------------ timing
@@ -644,7 +705,8 @@ def main() -> int:
 
     lift = ("fwd53_level", "inv53_level")
     transforms = lift + ("rct_forward_shift", "rct_inverse_unshift")
-    every = transforms + ("ht_encode", "ht_decode")
+    every = transforms + ("ht_encode", "ht_destuff", "ht_decode",
+                          "ht_magsgn")
     if set(LAUNCHES) != set(every):
         raise AssertionError(f"launch counters {sorted(LAUNCHES)}, "
                              f"expected {sorted(every)}")
@@ -652,12 +714,14 @@ def main() -> int:
     codec_case("a config-1 512x512 gray MQ", make_image(),
                dict(numresolution=6), lift, card_note)
     # the main path: one launch of each level kernel a level, five levels,
-    # and one of each HT kernel for the tile's even codeblocks
+    # and one of each HT kernel for the tile's even codeblocks (decode: the
+    # destuffing, chain and MagSgn launches)
     kw_b = dict(numresolution=6, ht=True)
     counts, data_b = codec_case(
         "b 3840x2160 RGB HT lossless", uhd, kw_b, every, card_note,
         exact={"fwd53_level": 5, "inv53_level": 5, "rct_forward_shift": 1,
-               "rct_inverse_unshift": 1, "ht_encode": 1, "ht_decode": 1})
+               "rct_inverse_unshift": 1, "ht_encode": 1, "ht_destuff": 1,
+               "ht_decode": 1, "ht_magsgn": 1})
     codec_case("c 2048x2048 RGB 512^2 tiles MQ", make_rgb(2048, 2048, SEED),
                dict(numresolution=6, tile_size=(512, 512)), transforms,
                card_note)
@@ -680,14 +744,18 @@ def main() -> int:
                                 "grok_tpu/ops/mct.py:130"),
         "ht_encode": ("grok_tpu_torch/csrc/ht_encode.cu",
                       "grok_tpu/ops/ht_encode.py:247"),
+        "ht_destuff": ("grok_tpu_torch/csrc/ht_decode.cu",
+                       "grok_tpu/ops/ht_decode.py:183"),
         "ht_decode": ("grok_tpu_torch/csrc/ht_decode.cu",
+                      "grok_tpu/ops/ht_decode.py:194"),
+        "ht_magsgn": ("grok_tpu_torch/csrc/ht_decode.cu",
                       "grok_tpu/ops/ht_decode.py:194"),
     }
     for name in every:
         source, tpu = replaces[name]
         ms, plain_ms, bound_ms, bound_by = times[name]
-        # no single PyTorch call computes a 5/3 level, the fused RCT or an
-        # HT cleanup pass
+        # no single PyTorch call computes a 5/3 level, the fused RCT, an HT
+        # cleanup pass or HT destuffing
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": tpu, "launches": counts[name],
                         "max_abs_err": err[name], "ms": ms,

@@ -10,13 +10,16 @@ path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("fwd53_level", "inv53_level", "rct_forward_shift",
-     "rct_inverse_unshift", "ht_encode", "ht_decode"), 0)
+     "rct_inverse_unshift", "ht_encode", "ht_destuff", "ht_decode",
+     "ht_magsgn"), 0)
 
 
 def reset_launches() -> None:
@@ -49,10 +52,11 @@ def launch(counter: str, entry: str, device: torch.device,
     """Launch C entry point `entry` with the tensors' pointers, then the
     ints, on the current stream of `device`; raise on a CUDA error, and
     count the launch under `counter`."""
-    for v in ints:
-        if not -2 ** 31 <= v < 2 ** 31:
-            raise ValueError(f"{entry}: {v} does not fit a C int; the "
-                             "tensor is too large for one launch")
+    for v, ctype in zip(ints, build.int_args(entry)):
+        bits = 8 * ctypes.sizeof(ctype)
+        if not -2 ** (bits - 1) <= v < 2 ** (bits - 1):
+            raise ValueError(f"{entry}: {v} does not fit a {bits}-bit C "
+                             "int; the tensor is too large for one launch")
     lib = build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

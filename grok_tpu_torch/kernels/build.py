@@ -23,7 +23,7 @@ GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: (argument types); each returns a cudaError_t as int
 _SIGNATURES = {
     # x, ll, hl, lh, hh, h, w, planes, stream
@@ -35,10 +35,15 @@ _SIGNATURES = {
     # y, cb, cr, r, g, b, count, prec, sgnd, stream
     "grk_rct_inv": (_P,) * 6 + (_I, _I, _I, _P),
     # desc, enc_cwd, enc_len, pool, pool_used, meta, nblocks, pool_cap,
-    # stream
-    "grk_ht_encode": (_P,) * 6 + (_I, _I, _P),
-    # desc, pool, lut_rho, lut_len, nblocks, maxc, wrap_bits, stream
-    "grk_ht_decode": (_P,) * 4 + (_I, _I, _I, _P),
+    # max_quads, max_qw, scup_max, stream
+    "grk_ht_encode": (_P,) * 6 + (_I, _L, _I, _I, _I, _P),
+    # desc, data, scratch, streams, longest, nblocks, stream
+    "grk_ht_destuff": (_P,) * 5 + (_I, _P),
+    # desc, streams, scratch, lut_rho, lut_len, rho, umax, nblocks, maxc,
+    # max_qw, stream
+    "grk_ht_decode": (_P,) * 7 + (_I, _I, _I, _P),
+    # desc, streams, scratch, rho, umax, longest, nblocks, stream
+    "grk_ht_magsgn": (_P,) * 6 + (_I, _P),
 }
 
 
@@ -139,6 +144,11 @@ def load() -> ctypes.CDLL:
             lib.grk_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def int_args(name: str) -> tuple:
+    """The ctypes of C entry point `name`'s integer arguments, in order."""
+    return tuple(t for t in _SIGNATURES[name] if t is not _P)
 
 
 def check(name: str, err: int) -> None:

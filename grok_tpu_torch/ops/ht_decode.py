@@ -1,26 +1,35 @@
 """HT (Part 15) cleanup-pass decoder for batches of codeblocks: the port of
 grok_tpu/ops/ht_decode.py.
 
-The host parses each segment's Scup, destuffs its three streams (MagSgn,
-MEL and the byte-reversed VLC) through the native coder
-(`destuff_streams_native`, all streams of a batch in one buffer), and
-packs the bits back into bytes (`np.packbits`, 8x smaller than the
-one-byte-a-bit destuffer output) into one pool, each stream followed by 8
-zero bytes.  Then `decode_cblks_ht(items, device)`
-replays, per block, the MEL automaton and the VLC quad parse with the
-u-predictor chain, and reads the MagSgn samples from bit offsets that are
-an exclusive prefix sum of popcount(rho) * (umax + 1).  On a CUDA device
-that is one launch of csrc/ht_decode.cu (`grk_ht_decode`) for every block,
-mixed shapes together, each written at its place in its destination
-tensor; on the CPU it is the plain PyTorch twin `decode_cblks_ht_plain`.
+`decode_cblks_ht(items, device)` takes the segments as Tier-2 hands them
+over, (segment, h, w) per codeblock.  The host joins them into one byte
+buffer and builds per-block descriptors with numpy; that is all it does.
+Each segment's Scup is parsed, and its three streams (MagSgn, the MEL
+suffix read forward, the VLC suffix read backward) are 0xFF-destuffed, where
+the blocks are decoded.  Then, per block, the MEL automaton and the VLC
+quad parse with the u-predictor chain are replayed, and the MagSgn samples
+are read from bit offsets that are an exclusive prefix sum of
+popcount(rho) * (umax + 1).
+
+On a CUDA device that is three launches of csrc/ht_decode.cu after one
+host-to-device copy of the segments: `grk_ht_destuff` (Scup, destuffing,
+the batch's longest stream), `grk_ht_decode` (the MEL and VLC chain of
+every block, one thread a block) and `grk_ht_magsgn` (the samples, every
+block, mixed shapes together, each written at its place in its destination
+tensor).  On the
+CPU it is the plain PyTorch twin `decode_cblks_ht_plain`, whose destuffing
+(`destuff_streams`) is a running sum of byte widths and one scatter of
+bits, vectorised across streams.
 
 Corrupt streams decode exactly as grok_tpu's device decoder decodes them
-when the batch is the same (one batch a tile, as its router makes): reads
-past a stream's end return zeros; a MagSgn cursor that went negative reads
-where JAX's dynamic_slice puts it, at cursor + L clamped to 0, where L is
-the batch's padded stream length in bits (`wrap_bits`); an int32 right
-shift by a count outside [0, 31] fills with the sign bit (`sar32`); and
-sums wrap as int32.
+when the batch is the same (one batch a tile, as its router makes): a bad
+Scup (fewer than 2 bytes, Scup below 2 or above the length) gives three
+empty streams; reads past a stream's end return zeros; a MagSgn cursor
+that went negative reads where JAX's dynamic_slice puts it, at cursor + L
+clamped to 0, where L is the batch's padded stream length in bits
+(`wrap_bits`, from the longest destuffed stream of the batch); an int32
+right shift by a count outside [0, 31] fills with the sign bit (`sar32`);
+and sums wrap as int32.
 """
 
 from __future__ import annotations
@@ -34,16 +43,22 @@ from ..t1.ht import MEL_E
 from .ht_encode import shape_ok
 from .ht_meta import wrap_int32
 
-_PAD = 8            # zero bytes after every stream: bounded 5-byte windows
+_PAD = 8            # zero bytes after every destuffed stream of the twin
 _MS_WIN = 31        # umax (<=30) + sign
 _VLC_WIN = 17       # max 7-bit CxtVLC cwd + '111' + 7-bit escape
 _MEL_RUN_WIN = 5    # max run-length field width
 _REF_PAD = 64       # grok_tpu's cursor overrun guard, in bits
 
-# per block: output pointer and row stride (elements), h, w, then byte
-# offset and byte length of the MagSgn, MEL and VLC streams in the pool
-DESC = ("out_ptr", "out_stride", "h", "w", "ms_off", "ms_len", "mel_off",
-        "mel_len", "vlc_off", "vlc_len")
+# per block, filled by the host: output pointer and row stride (elements),
+# h, w, the segment's byte offset and length in the joined buffer, the word
+# offset of the block's destuffing scratch on the card and the offset of its
+# quads in the rho and umax arrays
+DESC = ("out_ptr", "out_stride", "h", "w", "seg_off", "seg_len",
+        "scratch_off", "quad_off")
+# per block, filled by grk_ht_destuff: word offset and bit count of the
+# destuffed MagSgn, MEL and VLC streams in the scratch
+STREAMS = ("ms_off", "ms_bits", "mel_off", "mel_bits", "vlc_off",
+           "vlc_bits")
 
 # torch.device -> (DEC_LUT_RHO, DEC_LUT_LEN) uint8 tensors on that device
 _DEVICE_TABLES: dict = {}
@@ -59,51 +74,31 @@ def _device_tables(device: torch.device):
     return tabs
 
 
-def split_streams(data: bytes):
-    """(MagSgn, MEL, VLC) stuffed, as grok_tpu's device decoder reads them:
-    the VLC stream is the suffix reversed; a segment with a bad Scup has
-    three empty ones."""
-    data = bytes(data)  # a memoryview of the codestream reverses badly
-    if len(data) < 2:
-        return b"", b"", b""
-    scup = ((data[-1] & 0xFF) << 4) | (data[-2] & 0x0F)
-    if scup < 2 or scup > len(data):
-        return b"", b"", b""
-    suffix = data[len(data) - scup:len(data) - 2]
-    return data[:len(data) - scup], suffix, suffix[::-1]
+def scratch_words(seg_len: np.ndarray) -> np.ndarray:
+    """Scratch words a segment's three destuffed streams may need: at most
+    8 bits a stuffed byte, the MagSgn and MEL streams share the segment
+    and the VLC stream reads the MEL bytes again, each stream rounded up
+    to whole words and followed by two zero words."""
+    return seg_len // 2 + 12
 
 
-def prepare(items):
-    """Host half of the decode: (pool uint8, desc (B, 10) int64, wrap_bits)
-    for items of (segment, h, w); the output pointers and strides are left
-    0.  Every stream is destuffed by the native coder into one bit array,
-    each in a region of its byte length * 8 + 64 bits, so one np.packbits
-    packs them all, each followed by 8 zero bytes.  wrap_bits is
-    grok_tpu's padded stream length L for this batch."""
+def join_segments(items):
+    """The host half of the decode: (joined bytes uint8, desc (B, 8) int64)
+    for items of (segment, h, w); the output pointers and strides and the
+    scratch and quad offsets are left 0."""
     desc = np.zeros((len(items), len(DESC)), np.int64)
-    streams = []
-    for i, (data, h, w) in enumerate(items):
+    for i, (_, h, w) in enumerate(items):
         if not shape_ok(h, w):
             raise ValueError("device HT path requires even, non-empty "
                              f"codeblock dims within 4096 samples and 1024 "
                              f"columns, got {(h, w)}")
         desc[i, 2:4] = h, w
-        streams += split_streams(data)
-    from ..t1 import native
-
-    lens = np.fromiter(map(len, streams), np.int64, len(streams))
-    offs = np.cumsum(lens) - lens
-    regions = 8 * lens + 8 * _PAD
-    bit_offs = np.cumsum(regions) - regions
-    bits = np.zeros(max(int(regions.sum()), 8), np.uint8)
-    nbits = native.destuff_streams_native(
-        np.frombuffer(b"".join(streams), np.uint8), offs, lens, bits,
-        bit_offs)
-    desc[:, 4::2] = (bit_offs // 8).reshape(-1, 3)
-    desc[:, 5::2] = ((nbits + 7) // 8).reshape(-1, 3)
-    longest = max(1, int(nbits.max(initial=0)))
-    return (np.packbits(bits), desc,
-            1 << (longest + _REF_PAD - 1).bit_length())
+    segs = [bytes(s) for s, _, _ in items]  # memoryviews join too
+    lens = np.fromiter(map(len, segs), np.int64, len(segs))
+    desc[:, 4] = np.cumsum(lens) - lens
+    desc[:, 5] = lens
+    return np.frombuffer(bytearray(b"".join(segs)) or bytearray(1),
+                         np.uint8), desc
 
 
 def _dests(items, device, out):
@@ -126,8 +121,8 @@ def decode_cblks_ht(items, device, out=None):
     per codeblock, h and w even.  Writes each block, doubled-domain
     sign * (2m + 1), into `out[i]` (int32 (h, w) tensors on `device` with
     contiguous rows, e.g. views into band tensors) or into new tensors,
-    and returns them.  A CUDA device launches the kernel, the CPU runs the
-    twin; other devices raise."""
+    and returns them.  A CUDA device launches the kernels, the CPU runs
+    the twin; other devices raise."""
     device = torch.device(device)
     if device.type == "cpu":
         return decode_cblks_ht_plain(items, device, out)
@@ -142,25 +137,127 @@ def decode_cblks_ht(items, device, out=None):
 
 
 def decode_args(items, device: torch.device, out):
-    """The kernel's arguments: (desc, pool) on the device and wrap_bits,
-    writing items[i] into out[i], which must outlive the launches."""
-    pool, desc, wrap_bits = prepare(items)
+    """The kernels' arguments: (desc, joined segments, scratch, streams,
+    longest, rho, umax) on the device and the widest quad row, writing
+    items[i] into out[i], which must outlive the launches."""
+    data, desc = join_segments(items)
     desc[:, 0] = [o.data_ptr() for o in out]
     desc[:, 1] = [o.stride(0) for o in out]
+    words = scratch_words(desc[:, 5])
+    desc[:, 6] = np.cumsum(words) - words
+    quads = (desc[:, 2] // 2) * (desc[:, 3] // 2)
+    desc[:, 7] = np.cumsum(quads) - quads
+    nq = int(quads.sum())
     return (torch.from_numpy(desc).to(device),
-            torch.from_numpy(pool).to(device), wrap_bits)
+            torch.from_numpy(data).to(device),
+            torch.empty(int(words.sum()), dtype=torch.int32, device=device),
+            torch.empty((len(items), len(STREAMS)), dtype=torch.int64,
+                        device=device),
+            torch.empty(1, dtype=torch.int64, device=device),
+            torch.empty(nq, dtype=torch.uint8, device=device),
+            torch.empty(nq, dtype=torch.int32, device=device),
+            int(desc[:, 3].max()) // 2)
+
+
+def launch_destuff(args, device: torch.device) -> None:
+    """One launch of grk_ht_destuff on decode_args' tensors: Scup, the
+    destuffed streams, the batch's longest."""
+    desc, data, scratch, streams, longest = args[:5]
+    longest.zero_()
+    launch("ht_destuff", "grk_ht_destuff", device,
+           (desc, data, scratch, streams, longest), (len(desc),))
+
+
+def launch_chains(args, device: torch.device) -> None:
+    """One launch of grk_ht_decode after launch_destuff: the MEL and VLC
+    chain of every block, rho and umax of every quad."""
+    desc, _, scratch, streams, _, rho, umax, max_qw = args
+    lut_rho, lut_len = _device_tables(device)
+    launch("ht_decode", "grk_ht_decode", device,
+           (desc, streams, scratch, lut_rho, lut_len, rho, umax),
+           (len(desc), ht_tables.MAX_CWD_LEN, max_qw))
+
+
+def launch_magsgn(args, device: torch.device) -> None:
+    """One launch of grk_ht_magsgn after launch_chains: the samples."""
+    desc, _, scratch, streams, longest, rho, umax, _ = args
+    launch("ht_magsgn", "grk_ht_magsgn", device,
+           (desc, streams, scratch, rho, umax, longest), (len(desc),))
 
 
 def launch_decode(args, device: torch.device) -> None:
-    """One launch of grk_ht_decode on decode_args' tensors."""
-    desc, pool, wrap_bits = args
-    lut_rho, lut_len = _device_tables(device)
-    launch("ht_decode", "grk_ht_decode", device,
-           (desc, pool, lut_rho, lut_len),
-           (len(desc), ht_tables.MAX_CWD_LEN, wrap_bits))
+    """The three launches on decode_args' tensors, with no host round trip
+    between them."""
+    launch_destuff(args, device)
+    launch_chains(args, device)
+    launch_magsgn(args, device)
 
 
 # ------------------------------------------------------------ plain twin
+
+def split_segments(data: torch.Tensor, seg_off: torch.Tensor,
+                   seg_len: torch.Tensor):
+    """Scup of every segment, as grok_tpu's device decoder reads it: the
+    (first byte, byte count, step) of the MagSgn, MEL and VLC streams,
+    each (3B,) with a block's three together.  MEL is the suffix read
+    forward, VLC the suffix read backward; a segment with fewer than 2
+    bytes, a Scup below 2 or one above its length has three empty
+    streams."""
+    d = torch.cat([data.to(torch.int64),
+                   torch.zeros(2, dtype=torch.int64, device=data.device)])
+    end = seg_off + seg_len
+    scup = (d[(end - 1).clamp(min=0)] << 4) | (d[(end - 2).clamp(min=0)]
+                                               & 0x0F)
+    ok = (seg_len >= 2) & (scup >= 2) & (scup <= seg_len)
+    suffix = torch.where(ok, scup - 2, 0)
+    first = torch.stack([seg_off, end - scup, end - 3], dim=1)
+    count = torch.stack([torch.where(ok, seg_len - scup, 0), suffix,
+                         suffix], dim=1)
+    step = torch.tensor([1, 1, -1], device=data.device).expand_as(first)
+    return first.reshape(-1), count.reshape(-1), step.reshape(-1)
+
+
+def destuff_streams(data: torch.Tensor, first: torch.Tensor,
+                    count: torch.Tensor, step: torch.Tensor):
+    """0xFF destuffing of many streams at once (grk_destuff_bits): every
+    byte gives 8 bits, MSB first, or its low 7 after a 0xFF byte of its
+    stream.  Stream i is count[i] bytes of `data` from first[i], walking
+    by step[i] (1, or -1 for a stream read backward).  Returns (bits, one
+    0/1 uint8 a bit; region starts; bit counts): each stream in a region
+    of count * 8 bits followed by _PAD zero bytes, regions on bytes."""
+    dev = data.device
+    n = len(count)
+    total = int(count.sum())
+    sid = torch.repeat_interleave(torch.arange(n, device=dev), count)
+    k = torch.arange(total, device=dev) - (torch.cumsum(count, 0)
+                                           - count)[sid]
+    idx = first[sid] + step[sid] * k
+    d = data.to(torch.int64)
+    byte = d[idx]
+    before = d[(idx - step[sid]).clamp(0, len(d) - 1)]
+    after_ff = (k > 0) & (before == 0xFF)
+    width = 8 - after_ff.to(torch.int64)
+    nbits = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, sid, width)
+    region = 8 * (count + _PAD)
+    starts = torch.cumsum(region, 0) - region
+    at = (starts - (torch.cumsum(nbits, 0) - nbits))[sid] + (
+        torch.cumsum(width, 0) - width)
+    bits = torch.zeros(int(region.sum()), dtype=torch.uint8, device=dev)
+    for j in range(8):
+        m = width > j
+        bits[at[m] + j] = ((byte[m] >> (width[m] - 1 - j)) & 1).to(
+            torch.uint8)
+    return bits, starts, nbits
+
+
+def wrap_bits(nbits) -> int:
+    """grok_tpu's padded stream length L for a batch whose destuffed
+    streams have `nbits` bits: the longest (at least 1) plus the 64-bit
+    guard, rounded up to a power of two."""
+    longest = max(1, int(nbits.max()) if len(nbits) else 0)
+    return 1 << (longest + _REF_PAD - 1).bit_length()
+
 
 def sar32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """int32 arithmetic right shift with XLA's semantics for any count: a
@@ -186,23 +283,33 @@ def _read(win40, off, length, pos, n: int) -> torch.Tensor:
     return (w >> (40 - (pos & 7) - n)) & ((1 << n) - 1)
 
 
-def decode_cblks_ht_plain(items, device="cpu", out=None):
-    """Plain PyTorch twin of decode_cblks_ht, run on `device`: the MEL and
-    VLC chain is a loop over quad steps, vectorised across blocks; the
-    MagSgn reads are vectorised over every sample."""
-    device = torch.device(device)
-    out = _dests(items, device, out)
-    if not items:
-        return out
-    pool, desc, wrap_bits = prepare(items)
+def _streams_plain(items, device):
+    """The twin's Scup parsing and destuffing: (desc, 40-bit windows of the
+    packed destuffed streams, their byte offsets and byte lengths, each
+    (B, 3), and the batch's wrap_bits)."""
+    data, desc = join_segments(items)
     d = torch.from_numpy(desc).to(device)
-    win40 = _windows(torch.from_numpy(pool).to(device))
+    data = torch.from_numpy(data).to(device)
+    bits, starts, nbits = destuff_streams(
+        data, *split_segments(data, d[:, 4], d[:, 5]))
+    win40 = _windows((bits.reshape(-1, 8).to(torch.int64) << torch.arange(
+        7, -1, -1, device=device)).sum(1))
+    return (d, win40, (starts // 8).reshape(-1, 3),
+            ((nbits + 7) // 8).reshape(-1, 3), wrap_bits(nbits))
+
+
+def _chains(d, win40, offs, lens):
+    """The MEL and VLC chain of every block, a loop over quad steps
+    vectorised across blocks: rho and umax of every quad, (B, max quads)
+    int64 (past a block's own quads, values nothing reads)."""
+    device = d.device
     hs, ws = d[:, 2], d[:, 3]
     qw = ws // 2
     nq = (hs // 2) * qw
     nqmax = int(nq.max())
-    b = len(items)
-    ms_off, ms_len, mel_off, mel_len, vlc_off, vlc_len = d[:, 4:].T
+    b = len(d)
+    _, mel_off, vlc_off = offs.T
+    _, mel_len, vlc_len = lens.T
 
     def z():
         return torch.zeros(b, dtype=torch.int64, device=device)
@@ -272,19 +379,42 @@ def decode_cblks_ht_plain(items, device="cpu", out=None):
         rho_q[:, t] = torch.where(valid, rho, 0)
         umax_q[:, t] = umax
 
+    return rho_q, umax_q
+
+
+def quad_chains_plain(items, device="cpu"):
+    """Twin of grk_ht_decode: rho and umax of every quad of every block,
+    (B, max quads) int64."""
+    d, win40, offs, lens, _ = _streams_plain(items, torch.device(device))
+    return _chains(d, win40, offs, lens)
+
+
+def decode_cblks_ht_plain(items, device="cpu", out=None):
+    """Plain PyTorch twin of decode_cblks_ht, run on `device`: Scup and
+    destuffing vectorised over every byte; the MEL and VLC chain is a loop
+    over quad steps, vectorised across blocks; the MagSgn reads are
+    vectorised over every sample."""
+    device = torch.device(device)
+    out = _dests(items, device, out)
+    if not items:
+        return out
+    d, win40, offs, lens, wrap = _streams_plain(items, device)
+    rho_q, umax_q = _chains(d, win40, offs, lens)
+    b, nqmax = rho_q.shape
+    ms_off, ms_len = offs[:, 0], lens[:, 0]
     # MagSgn: cursor of each quad = exclusive prefix sum of its bits
     step = umax_q + 1
     count = torch.zeros_like(rho_q)
     for i in range(4):
         count += (rho_q >> i) & 1
-    bits = count * step
-    spos = torch.cumsum(bits, dim=1) - bits
+    nbits_q = count * step
+    spos = torch.cumsum(nbits_q, dim=1) - nbits_q
     vals = torch.zeros((b, nqmax, 4), dtype=torch.int64, device=device)
     before = torch.zeros_like(rho_q)
     for i in range(4):
         sig = (rho_q >> i) & 1
         pos = spos + before * step
-        pos = torch.where(pos < 0, (pos + wrap_bits).clamp(min=0), pos)
+        pos = torch.where(pos < 0, (pos + wrap).clamp(min=0), pos)
         win = _read(win40, ms_off[:, None], ms_len[:, None], pos, _MS_WIN)
         m = sar32(win, _MS_WIN - umax_q) + 1
         sgn = sar32(win, _MS_WIN - umax_q - 1) & 1

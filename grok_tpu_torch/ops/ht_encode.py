@@ -2,17 +2,20 @@
 grok_tpu/ops/ht_encode.py.
 
 `encode_cblks_ht(blocks)` codes a list of (H, W) int32 codeblocks with even
-H and W and magnitudes below 2^25, mixed shapes allowed.  The blocks may be
-views into band tensors (row stride free, unit column stride), so the
-codeblocks are read in place.  On CUDA tensors one launch of
-csrc/ht_encode.cu (`grk_ht_encode`) codes them all; on CPU tensors the
-plain PyTorch twin `encode_cblks_ht_plain` does.  Both produce the three
-UNSTUFFED streams of each block (MagSgn, MEL, VLC) with their bit counts,
-the block's numbps and the exact sum of its squared magnitudes; the host
-then applies the 0xFF bit-stuffing through the native coder
-(`stuff_streams_native`, all streams of a batch in one pool), reverses the
-VLC stream and appends Scup (`assemble_segments`).  The segments are byte-identical to
-t1/ht.py::encode_cblk_ht and to grok_tpu's device coder.
+H and W and magnitudes below 2^25, mixed shapes allowed, into finished
+cleanup segments.  The blocks may be views into band tensors (row stride
+free, unit column stride), so the codeblocks are read in place.
+
+Per block a segment is: the MagSgn stream 0xFF-stuffed, the MEL stream
+stuffed, the VLC stream stuffed and byte-reversed, then the two Scup bytes
+(the reference's `assemble_segments`).  On CUDA tensors one launch of
+csrc/ht_encode.cu (`grk_ht_encode`) does all of it, stuffing included, and
+writes every segment into one pool on the card; the host makes one
+device-to-host copy of the pool and slices it into segments.  On CPU
+tensors the plain PyTorch twin `encode_cblks_ht_plain` does the same work:
+the codes of every block, packed, stuffed by `stuff_streams` (vectorised
+across streams) and assembled by index arithmetic.  The segments are
+byte-identical to t1/ht.py::encode_cblk_ht and to grok_tpu's device coder.
 
 The CxtVLC tables (t1/ht_tables.py) are arguments of the kernel, uploaded
 once per device into _DEVICE_TABLES, which ht_tables.set_tables() clears.
@@ -38,11 +41,15 @@ _MS_MAXLEN = MAX_NUMBPS_DEVICE + 1   # (m-1) in umax bits + sign
 _VLC_MAXLEN = 7 + 10                 # max CxtVLC cwd + '111' + 7-bit escape
 _MEL_MAXLEN = 6                      # '0' + up to 5 run bits
 _CHUNK = 1024                        # blocks a plain-route pass holds
+# the largest Scup (suffix bytes + 2) a segment may carry; read by both
+# routes at each call
+SCUP_MAX = 4079
 
-# per block: byte offset and bit count of the MagSgn, MEL and VLC streams
-# in the pool, numbps, sum of squared magnitudes
-META = ("ms_off", "ms_bits", "mel_off", "mel_bits", "vlc_off", "vlc_bits",
-        "numbps", "sumsq")
+# per block in the kernel's output: segment offset in the pool and length,
+# numbps, sum of squared magnitudes, status (STATUS_*)
+META = ("seg_off", "seg_len", "numbps", "sumsq", "status")
+STATUS_SCUP = 1   # the suffix would exceed SCUP_MAX
+STATUS_POOL = 2   # the pool was too small for the segment
 
 # torch.device -> (ENC_CWD, ENC_LEN) uint8 tensors on that device
 _DEVICE_TABLES: dict = {}
@@ -58,11 +65,18 @@ def _device_tables(device: torch.device):
     return tabs
 
 
+def _stuffed_max(nbits: int) -> int:
+    """Most bytes a stream of `nbits` bits can stuff to: 7 bits a byte
+    after 0xFF bytes, and the guard byte."""
+    return (nbits + 6) // 7 + 1
+
+
 def worst_case_bytes(h: int, w: int) -> int:
-    """Pool bytes an (h, w) block may need: every stream at its longest."""
+    """Pool bytes an (h, w) block's segment may need: every stream at its
+    longest and stuffed at 7 bits a byte, and the two Scup bytes."""
     nq = (h // 2) * (w // 2)
-    return ((4 * nq * _MS_MAXLEN + 7) // 8 + (nq * _MEL_MAXLEN + 8) // 8
-            + (nq * _VLC_MAXLEN + 7) // 8)
+    return (_stuffed_max(4 * nq * _MS_MAXLEN) + _stuffed_max(
+        nq * _MEL_MAXLEN + 1) + _stuffed_max(nq * _VLC_MAXLEN) + 2)
 
 
 def shape_ok(h: int, w: int) -> bool:
@@ -101,10 +115,12 @@ def encode_cblks_ht(blocks):
         return [], []
     device = _check(blocks)
     if device.type == "cpu":
-        return assemble_segments(*_streams_plain(blocks))
+        return _encode_plain(blocks)
     if device.type != "cuda":
         raise ValueError(f"no kernel route for device {device}")
-    return assemble_segments(*_streams_cuda(blocks, device))
+    args = encode_args(blocks, device)
+    launch_encode(args, device)
+    return finish_encode(args)
 
 
 def encode_cblks_ht_plain(blocks):
@@ -113,36 +129,62 @@ def encode_cblks_ht_plain(blocks):
     if not blocks:
         return [], []
     _check(blocks)
-    return assemble_segments(*_streams_plain(blocks))
+    return _encode_plain(blocks)
 
 
-def encode_args(blocks, device: torch.device):
+# ------------------------------------------------------------ kernel route
+
+def encode_args(blocks, device: torch.device, pool_cap: int | None = None):
     """The kernel's arguments for CUDA codeblocks: (desc, pool, used, meta)
-    on the device.  The blocks must outlive the launches."""
-    desc = torch.tensor([[b.data_ptr(), b.stride(0), b.shape[0], b.shape[1]]
-                         for b in blocks], dtype=torch.int64).to(device)
-    cap = sum(worst_case_bytes(*b.shape) for b in blocks)
-    return (desc, torch.empty(cap, dtype=torch.uint8, device=device),
+    on the device and the launch's largest quad count and quad-row width.
+    The pool holds `pool_cap` bytes, by default every block's worst case.
+    The blocks must outlive the launches."""
+    shapes = [tuple(b.shape) for b in blocks]
+    desc = torch.tensor([[b.data_ptr(), b.stride(0), h, w]
+                         for b, (h, w) in zip(blocks, shapes)],
+                        dtype=torch.int64).to(device)
+    if pool_cap is None:
+        pool_cap = sum(worst_case_bytes(h, w) for h, w in shapes)
+    return (desc, torch.empty(max(pool_cap, 1), dtype=torch.uint8,
+                              device=device)[:pool_cap],
             torch.empty(1, dtype=torch.int64, device=device),
             torch.empty((len(blocks), len(META)), dtype=torch.int64,
-                        device=device))
+                        device=device),
+            max((h // 2) * (w // 2) for h, w in shapes),
+            max(w // 2 for _, w in shapes))
 
 
 def launch_encode(args, device: torch.device) -> None:
     """One launch of grk_ht_encode on encode_args' tensors."""
-    desc, pool, used, meta = args
+    desc, pool, used, meta, max_quads, max_qw = args
     used.zero_()
     enc_cwd, enc_len = _device_tables(device)
     launch("ht_encode", "grk_ht_encode", device,
            (desc, enc_cwd, enc_len, pool, used, meta),
-           (len(desc), len(pool)))
+           (len(desc), len(pool), max_quads, max_qw, SCUP_MAX))
 
 
-def _streams_cuda(blocks, device):
-    args = encode_args(blocks, device)
-    launch_encode(args, device)
-    _, pool, used, meta = args
-    return pool[:int(used.item())].cpu().numpy(), meta.cpu().numpy()
+def finish_encode(args):
+    """The host half after a launch: the results and the pool's used
+    bytes in one copy, the segments in another, then the checks and the
+    slicing.  Returns encode_cblks_ht's result."""
+    _, pool, used, meta = args[:4]
+    small = torch.cat([used, meta.reshape(-1)]).cpu().numpy()
+    meta = small[1:].reshape(-1, len(META))
+    _raise_on(meta[:, 2], meta[:, 4])
+    data = pool[:int(small[0])].cpu().numpy()
+    segs = [(data[o:o + n].tobytes(), nb) for o, n, nb in
+            meta[:, :3].tolist()]
+    return segs, meta[:, 3].tolist()
+
+
+def _raise_on(numbps, status) -> None:
+    if len(numbps) and int(numbps.max()) > MAX_NUMBPS_DEVICE:
+        raise ValueError("magnitudes exceed device HT range")
+    if (status == STATUS_SCUP).any():
+        raise ValueError("HT suffix overflow")
+    if (status == STATUS_POOL).any():
+        raise RuntimeError("HT encode: the segment pool is too small")
 
 
 # ------------------------------------------------------------ plain twin
@@ -224,92 +266,172 @@ def _codes(x: torch.Tensor):
             numbps, sumsq)
 
 
-def _pack(vals: torch.Tensor, lens: torch.Tensor, max_len: int):
-    """MSB-first packing of (n, codes) variable-length codes, each block's
-    stream starting on a byte.  Bits are placed from cumulative offsets,
-    one vectorised scatter a bit position of the codes, so memory grows
-    with the bits written.  Returns (bytes uint8, byte offsets (n,), bit
-    counts (n,))."""
+def _pack_bits(vals: torch.Tensor, lens: torch.Tensor, max_len: int):
+    """MSB-first bits of (n, codes) variable-length codes, one 0/1 byte a
+    bit, each block's stream in a region of whole bytes with at least 8
+    zero bits after it.  Bits are placed from cumulative offsets, one
+    vectorised scatter a bit position of the codes.  Returns (bits uint8,
+    region starts (n,), bit counts (n,))."""
     n = vals.shape[0]
     dev = vals.device
     nbits = lens.sum(dim=1)
-    nbytes = (nbits + 7) // 8
-    byte_off = torch.cumsum(nbytes, 0) - nbytes
+    region = 8 * ((nbits + 7) // 8 + 1)
+    starts = torch.cumsum(region, 0) - region
     keep = lens > 0
     blk = torch.arange(n, device=dev)[:, None].expand_as(lens)[keep]
     v, ln = vals[keep], lens[keep]
-    start = torch.cumsum(ln, 0) - ln                # global exclusive
-    blk_bits = torch.cumsum(nbits, 0) - nbits
-    pos = start - blk_bits[blk] + 8 * byte_off[blk]
-    bits = torch.zeros(int(nbytes.sum()) * 8, dtype=torch.uint8, device=dev)
+    first = torch.cumsum(ln, 0) - ln                # global exclusive
+    pos = first - (torch.cumsum(nbits, 0) - nbits)[blk] + starts[blk]
+    bits = torch.zeros(int(region.sum()), dtype=torch.uint8, device=dev)
     for j in range(max_len):
         m = ln > j
         if not bool(m.any()):
             break
         bits[pos[m] + j] = ((v[m] >> (ln[m] - 1 - j)) & 1).to(torch.uint8)
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int64,
-                           device=dev)
-    out = (bits.reshape(-1, 8).to(torch.int64) * weights).sum(1)
-    return out.to(torch.uint8), byte_off, nbits
+    return bits, starts, nbits
 
 
-def _streams_plain(blocks):
-    """Twin of the kernel's output: (pool bytes, meta (B, 8)) as numpy."""
-    meta = np.zeros((len(blocks), len(META)), np.int64)
-    pools = []
+def _segment_sum(values: torch.Tensor, index: torch.Tensor, n: int):
+    return torch.zeros(n, dtype=values.dtype, device=values.device
+                       ).index_add_(0, index, values)
+
+
+def stuff_streams(bits: torch.Tensor, starts: torch.Tensor,
+                  nbits: torch.Tensor):
+    """0xFF bit stuffing of many streams at once (grk_stuff_bits, grok_tpu's
+    `_stuff_bits_py`): 8 payload bits a byte, 7 after a 0xFF byte, the
+    final byte zero-padded, a 0x00 guard after a trailing 0xFF, nothing at
+    all for a stream of 0 bits.
+
+    bits: one 0/1 uint8 a bit; stream i is nbits[i] bits from
+    bits[starts[i]], followed by at least 8 zero bits.  Returns (bytes
+    uint8, offsets, lengths) with the streams one after another.
+
+    A round takes each unfinished stream from its cursor up to and
+    including its next 0xFF byte (or its end): the byte at every bit
+    position is known up front, so the next 0xFF on the cursor's 8-bit
+    grid is a reverse running minimum, and the rounds are as many as the
+    most 0xFF bytes in one stream, plus one."""
+    dev = bits.device
+    n = len(nbits)
+    m = len(bits)
+    starts = starts.to(torch.int64)
+    nbits = nbits.to(torch.int64)
+    size = m + (-m) % 8
+    b = torch.zeros(size + 8, dtype=torch.int32, device=dev)
+    b[:m] = bits.to(torch.int32)
+    byte = torch.zeros(size, dtype=torch.int32, device=dev)
+    for j in range(8):
+        byte |= b[j:j + size] << (7 - j)
+    never = size + 8
+    pos = torch.arange(size, dtype=torch.int64, device=dev)
+    cand = torch.where(byte == 0xFF, pos, never).reshape(-1, 8)
+    next_ff = cand.flip(0).cummin(0).values.flip(0).reshape(-1)
+    next_ff = torch.cat([next_ff, torch.full((8,), never, device=dev)])
+
+    guard = torch.zeros(n, dtype=torch.bool, device=dev)
+    recs = []   # (stream, 7-bit first byte, its position, first 8-bit
+    #             byte position, 8-bit bytes)
+    act = torch.nonzero(nbits > 0).reshape(-1)
+    cur = starts[act]
+    seven = torch.zeros(len(act), dtype=torch.bool, device=dev)
+    while len(act):
+        end = starts[act] + nbits[act]
+        first8 = cur + 7 * seven
+        inside = first8 < end
+        f = next_ff[first8.clamp(max=size + 7)]
+        hit = inside & (f < end)
+        count = torch.where(hit, (f - first8) // 8 + 1, torch.where(
+            inside, (end - first8 + 7) // 8, 0))
+        recs.append((act, seven, cur, first8, count))
+        after = f + 8
+        more = hit & (after < end)
+        guard[act[hit & ~more]] = True
+        act, cur = act[more], after[more]
+        seven = torch.ones(len(act), dtype=torch.bool, device=dev)
+    if not recs:
+        z = torch.zeros(n, dtype=torch.int64, device=dev)
+        return torch.zeros(0, dtype=torch.uint8, device=dev), z, z
+    stream, seven, cur, first8, count = (torch.cat(c) for c in zip(*recs))
+    order = torch.sort(stream, stable=True).indices
+    stream, seven, cur, first8, count = (
+        t[order] for t in (stream, seven, cur, first8, count))
+    per_rec = count + seven.to(torch.int64)
+    rec = torch.repeat_interleave(torch.arange(len(per_rec), device=dev),
+                                  per_rec)
+    k = torch.arange(len(rec), device=dev) - (
+        torch.cumsum(per_rec, 0) - per_rec)[rec]
+    is7 = seven[rec] & (k == 0)
+    at = torch.where(is7, cur[rec],
+                     first8[rec] + 8 * (k - seven[rec].to(torch.int64)))
+    vals = (byte[at] >> is7.to(torch.int32)).to(torch.uint8)
+    s = stream[rec]
+    nbytes = _segment_sum(per_rec, stream, n)
+    lens = nbytes + guard.to(torch.int64)
+    offs = torch.cumsum(lens, 0) - lens
+    out = torch.zeros(int(lens.sum()), dtype=torch.uint8, device=dev)
+    rank = torch.arange(len(s), device=dev) - (
+        torch.cumsum(nbytes, 0) - nbytes)[s]
+    out[offs[s] + rank] = vals
+    return out, offs, lens
+
+
+def _segments(x: torch.Tensor):
+    """Finished segments of n (h, w) blocks: (bytes uint8, segment offsets,
+    lengths, numbps, sums of squares), numpy."""
+    n = x.shape[0]
+    dev = x.device
+    *streams, numbps, sumsq = _codes(x)
+    numbps_h = numbps.cpu().numpy()
+    if numbps_h.max() > MAX_NUMBPS_DEVICE:
+        raise ValueError("magnitudes exceed device HT range")
+    coded = numbps > 0
+    parts = [_pack_bits(vals, lens, max_len) for (vals, lens), max_len in
+             zip(streams, (_MS_MAXLEN, _MEL_MAXLEN, _VLC_MAXLEN))]
     base = 0
+    bits, starts, nbits = [], [], []
+    for bt, st, nb in parts:
+        bits.append(bt)
+        starts.append(st + base)
+        nbits.append(torch.where(coded, nb, 0))   # numbps 0: no segment
+        base += len(bt)
+    out, offs, lens = stuff_streams(torch.cat(bits), torch.cat(starts),
+                                    torch.cat(nbits))
+    ms_len, mel_len, vlc_len = lens.reshape(3, n)
+    scup = mel_len + vlc_len + 2
+    if bool((coded & (scup > SCUP_MAX)).any()):
+        raise ValueError("HT suffix overflow")
+    seg_len = torch.where(coded, ms_len + scup, 0)
+    seg_off = torch.cumsum(seg_len, 0) - seg_len
+    # each stuffed byte's place: MagSgn, MEL forward, VLC backward
+    first = torch.stack([seg_off, seg_off + ms_len,
+                         seg_off + ms_len + mel_len + vlc_len - 1])
+    step = torch.tensor([1, 1, -1], device=dev)[:, None].expand(3, n)
+    sid = torch.repeat_interleave(torch.arange(3 * n, device=dev), lens)
+    rank = torch.arange(len(out), device=dev) - offs[sid]
+    seg = torch.zeros(int(seg_len.sum()), dtype=torch.uint8, device=dev)
+    seg[first.reshape(-1)[sid] + step.reshape(-1)[sid] * rank] = out
+    end = (seg_off + seg_len)[coded]
+    seg[end - 2] = (scup[coded] & 0x0F).to(torch.uint8)
+    seg[end - 1] = ((scup[coded] >> 4) & 0xFF).to(torch.uint8)
+    return (seg.cpu().numpy(), seg_off.cpu().numpy(), seg_len.cpu().numpy(),
+            numbps_h, sumsq.cpu().numpy())
+
+
+def _encode_plain(blocks):
+    """The twin: blocks of one shape together, _CHUNK at a time."""
+    segs: list = [None] * len(blocks)
+    sums: list = [None] * len(blocks)
     groups: dict = defaultdict(list)
     for i, b in enumerate(blocks):
         groups[tuple(b.shape)].append(i)
     for idx in groups.values():
         for c0 in range(0, len(idx), _CHUNK):
             part = idx[c0:c0 + _CHUNK]
-            x = torch.stack([blocks[i] for i in part])
-            *streams, numbps, sumsq = _codes(x)
-            numbps = numbps.cpu().numpy()
-            if numbps.max() > MAX_NUMBPS_DEVICE:
-                raise ValueError("magnitudes exceed device HT range")
-            m = meta[part]
-            for s, ((vals, lens), max_len) in enumerate(zip(
-                    streams, (_MS_MAXLEN, _MEL_MAXLEN, _VLC_MAXLEN))):
-                data, off, nbits = _pack(vals, lens, max_len)
-                pools.append(data.cpu().numpy())
-                m[:, 2 * s] = off.cpu().numpy() + base
-                m[:, 2 * s + 1] = nbits.cpu().numpy()
-                base += len(pools[-1])
-            m[:, 6] = numbps
-            m[:, 7] = sumsq.cpu().numpy()
-            meta[part] = m
-    pool = np.concatenate(pools) if pools else np.zeros(0, np.uint8)
-    return pool, meta
-
-
-# ----------------------------------------------------------- host assembly
-
-def assemble_segments(pool: np.ndarray, meta: np.ndarray):
-    """Host assembly: stuff every stream (the native coder's 0xFF
-    stuffing, one pass over the pool), reverse VLC, append Scup.  Returns
-    ([(segment, numbps)], [sum of squares]) matching t1.ht.encode_cblk_ht."""
-    from ..t1 import native
-
-    if len(meta) and int(meta[:, 6].max()) > MAX_NUMBPS_DEVICE:
-        raise ValueError("magnitudes exceed device HT range")
-    coded = meta[:, 6] > 0
-    streams = meta[coded][:, :6].reshape(-1, 2)   # (offset, bits) rows
-    out, offs, lens = native.stuff_streams_native(pool, streams[:, 0],
-                                                  streams[:, 1])
-    segs = []
-    k = 0
-    for nb in meta[:, 6].tolist():
-        if nb == 0:
-            segs.append((b"", 0))
-            continue
-        ms, mel, vlc = (out[o:o + n] for o, n in zip(
-            offs[k:k + 3].tolist(), lens[k:k + 3].tolist()))
-        k += 3
-        scup = len(mel) + len(vlc) + 2
-        if scup > 4079:
-            raise ValueError("HT suffix overflow")
-        segs.append((ms.tobytes() + mel.tobytes() + vlc[::-1].tobytes()
-                     + bytes([0x0F & scup, (scup >> 4) & 0xFF]), nb))
-    return segs, meta[:, 7].tolist()
+            data, offs, lens, numbps, sumsq = _segments(
+                torch.stack([blocks[i] for i in part]))
+            for i, o, n, nb, ss in zip(part, offs.tolist(), lens.tolist(),
+                                       numbps.tolist(), sumsq.tolist()):
+                segs[i] = (data[o:o + n].tobytes(), nb)
+                sums[i] = ss
+    return segs, sums

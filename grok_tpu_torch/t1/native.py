@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import ctypes as ct
 import fcntl
-import itertools
 import os
 import shutil
 import subprocess
@@ -449,64 +448,6 @@ def ht_decode_batch_native(jobs: list[bk.DecodeJob],
             continue
         j.out = out_pool[out_off: out_off + j.h * j.w].reshape(j.h, j.w)
         out_off += j.h * j.w
-
-
-_lib.grk_stuff_bits.argtypes = [ct.c_uint64, ct.c_long, ct.c_uint64,
-                                ct.c_long]
-_lib.grk_stuff_bits.restype = ct.c_long
-
-
-def stuff_streams_native(raw: np.ndarray, offs, nbits):
-    """0xFF bit-stuffing (grk_stuff_bits: 7 payload bits after a 0xFF byte,
-    the writer's flush) of many unstuffed MSB-first streams of one byte
-    pool (stream i: nbits[i] bits from byte offs[i]), into one output
-    buffer.  Returns (out, out_offs, out_lens) as numpy arrays."""
-    raw = np.ascontiguousarray(raw, dtype=np.uint8)
-    if raw.size == 0:
-        raw = np.zeros(1, np.uint8)
-    nbits = np.asarray(nbits, np.int64)
-    # stuffing can grow a stream: after a 0xFF byte only 7 bits fit
-    caps = nbits // 7 + 8
-    out_offs = np.cumsum(caps) - caps
-    out = np.empty(max(int(caps.sum()), 1), np.uint8)
-    todo = np.flatnonzero(nbits)
-    lens = np.zeros(len(nbits), np.int64)
-    lens[todo] = _call_rows(_lib.grk_stuff_bits, (
-        _addr(raw) + np.asarray(offs)[todo], nbits[todo],
-        _addr(out) + out_offs[todo], caps[todo]))
-    if (lens < 0).any():
-        raise RuntimeError("stuff_bits overflow")
-    return out, out_offs, lens
-
-
-def _call_rows(fn, columns) -> list[int]:
-    """fn(*row) for each row of the argument columns, in one C-level loop
-    (spreading these short calls over threads did not pay: they contend
-    for the GIL)."""
-    return list(itertools.starmap(fn, zip(*(np.asarray(c).tolist()
-                                            for c in columns))))
-
-
-_lib.grk_destuff_bits.argtypes = [ct.c_uint64, ct.c_long, ct.c_uint64]
-_lib.grk_destuff_bits.restype = ct.c_long
-
-
-def destuff_streams_native(data: np.ndarray, offs, lens, bits: np.ndarray,
-                           bit_offs) -> np.ndarray:
-    """Expand many 0xFF-stuffed streams of one byte buffer (stream i:
-    lens[i] bytes from offs[i]; grk_destuff_bits) into one 0/1-per-byte
-    array, stream i from bits[bit_offs[i]], which must have room for
-    lens[i] * 8.  Returns the bit counts."""
-    data = np.ascontiguousarray(data, dtype=np.uint8)
-    if data.size == 0:
-        data = np.zeros(1, np.uint8)
-    lens = np.asarray(lens, np.int64)
-    todo = np.flatnonzero(lens)
-    counts = np.zeros(len(lens), np.int64)
-    counts[todo] = _call_rows(_lib.grk_destuff_bits, (
-        _addr(data) + np.asarray(offs)[todo], lens[todo],
-        _addr(bits) + np.asarray(bit_offs)[todo]))
-    return counts
 
 
 bk.register_backend("native", encode_batch_native, decode_batch_native)

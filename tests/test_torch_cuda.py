@@ -158,6 +158,7 @@ def test_ht_kernels_on_1000_blocks(gen):
     for o, r in zip(out, ref):
         assert torch.equal(o, r)
     assert LAUNCHES["ht_encode"] == 1 and LAUNCHES["ht_decode"] == 1
+    assert LAUNCHES["ht_destuff"] == 1 and LAUNCHES["ht_magsgn"] == 1
 
 
 def test_ht_decode_kernel_matches_twin(gen):
@@ -175,7 +176,8 @@ def test_ht_decode_kernel_matches_twin(gen):
     reset_launches()
     ht_decode.decode_cblks_ht(items[:1] + items[4:5] + items[6:7], "cuda",
                               dests)
-    assert LAUNCHES["ht_decode"] == 1
+    assert LAUNCHES["ht_decode"] == 1 and LAUNCHES["ht_destuff"] == 1
+    assert LAUNCHES["ht_magsgn"] == 1
     assert torch.equal(band[0:32, 0:32].cpu(), ref[0])
     assert torch.equal(band[32:64, 0:12].cpu(), ref[4])
     assert torch.equal(band[0:10, 40:72].cpu(), ref[6])
@@ -213,3 +215,67 @@ def test_ht_encode_kernel_refuses_out_of_range(gen):
         for blocks in (list(bl), list(bl.cuda())):
             with pytest.raises(ValueError, match="device HT range"):
                 ht_encode.encode_cblks_ht(blocks)
+
+
+def test_ht_kernels_dense_ff_round_trip(gen):
+    """The 0xFF-dense blocks: the card's stuffing grows the MagSgn stream
+    as the twin's does, and its destuffing reads it back."""
+    bl = torch.from_numpy(cases.dense_ff())
+    got = ht_encode.encode_cblks_ht(list(bl.cuda()))
+    assert got == ht_encode.encode_cblks_ht_plain(list(bl))
+    items = [(s, 32, 32) for s, _ in got[0]]
+    out, ref = _decode_both(items)
+    for o, r, b in zip(out, ref, bl):
+        assert torch.equal(o, r)
+        exp = torch.where(b != 0, torch.sign(b) * (2 * b.abs() + 1), 0)
+        assert torch.equal(o, exp.to(torch.int32))
+
+
+def test_ht_decode_kernel_bad_scup_and_wrap(gen):
+    """Segments with fewer than 2 bytes, a Scup below 2 or above the
+    length, and a corrupt block whose MagSgn cursor wraps by the batch's
+    padded length: kernel and twin agree alone and beside a long block."""
+    rng = np.random.default_rng(8)
+    body = bytes(rng.integers(0, 256, 40, dtype=np.uint8))
+    items = [(b"", 16, 16), (b"\x07", 16, 16)]
+    items += [(body[:-2] + bytes([v & 0xF, v >> 4]), 16, 16)
+              for v in (0, 1, 41, 4095)]
+    wraps = bytes.fromhex("e92f42458210c0a1b5a298cdc623cb5f965f9826081301")
+    big = np.random.default_rng(7).integers(-(1 << 20), 1 << 20, (1, 64, 64))
+    long_seg = ht_encode.encode_cblks_ht_plain(
+        list(torch.from_numpy(big.astype(np.int32))))[0][0][0]
+    for batch in (items + [(wraps, 8, 8)],
+                  items + [(wraps, 8, 8), (long_seg, 64, 64)]):
+        out, ref = _decode_both(batch)
+        for o, r in zip(out, ref):
+            assert torch.equal(o, r)
+
+
+def test_ht_encode_kernel_raises_on_suffix_overflow(gen, monkeypatch):
+    """A Scup above SCUP_MAX is reported by the kernel and raises (no
+    legal block reaches 4079, so the limit is lowered here)."""
+    rng = np.random.default_rng(9)
+    bl = torch.from_numpy(cases.blocks(rng, 16, 16, n=4, mag=900))
+    segs, _ = ht_encode.encode_cblks_ht_plain(list(bl))
+    scup = max((s[-1] << 4) | (s[-2] & 0x0F) for s, _ in segs if s)
+    monkeypatch.setattr(ht_encode, "SCUP_MAX", scup - 1)
+    with pytest.raises(ValueError, match="HT suffix overflow"):
+        ht_encode.encode_cblks_ht(list(bl.cuda()))
+    monkeypatch.setattr(ht_encode, "SCUP_MAX", scup)
+    assert ht_encode.encode_cblks_ht(list(bl.cuda()))[0] == segs
+
+
+def test_ht_encode_kernel_raises_on_small_pool(gen):
+    """A pool too small for the segments raises; it is never truncated."""
+    rng = np.random.default_rng(10)
+    bl = list(torch.from_numpy(cases.blocks(rng, 32, 32, n=4)).cuda())
+    need = sum(len(s) for s, _ in ht_encode.encode_cblks_ht(bl)[0])
+    dev = bl[0].device
+    for cap in (0, need // 2, need - 1):
+        args = ht_encode.encode_args(bl, dev, pool_cap=cap)
+        ht_encode.launch_encode(args, dev)
+        with pytest.raises(RuntimeError, match="pool is too small"):
+            ht_encode.finish_encode(args)
+    args = ht_encode.encode_args(bl, dev, pool_cap=need)
+    ht_encode.launch_encode(args, dev)
+    assert ht_encode.finish_encode(args) == ht_encode.encode_cblks_ht(bl)

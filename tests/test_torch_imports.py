@@ -295,7 +295,8 @@ def test_cpu_runs_launch_nothing(rng):
                        shape=(16, 24))
     assert set(LAUNCHES) == {"fwd53_level", "inv53_level",
                              "rct_forward_shift", "rct_inverse_unshift",
-                             "ht_encode", "ht_decode"}
+                             "ht_encode", "ht_destuff", "ht_decode",
+                             "ht_magsgn"}
     assert all(v == 0 for v in LAUNCHES.values())
 
 
