@@ -5,12 +5,14 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 a source, in parallel) and the native host coder from native/, holds each
-kernel bit-exact against its plain PyTorch twin on the card at the shapes
-the lossless 5/3 path gives it (the HT Tier-1 kernels byte for byte, on
-corrupt streams and under the three CxtVLC table swaps too), times kernel
-and twin (the four HT kernels on case (b)'s codeblocks), then drives
-grok_tpu_torch.compress / decompress with their defaults (the card) on
-three cases:
+kernel bit-exact against its plain PyTorch twin at the shapes the lossless
+5/3 path gives it (the HT Tier-1 kernels byte for byte, on corrupt streams
+and under the three CxtVLC table swaps too; the MQ Tier-1 kernels on
+grok_tpu's test shapes, distortion-tracked blocks, corrupt and truncated
+streams and case (a)'s 70 codeblocks), times kernel and twin (the four HT
+kernels on case (b)'s codeblocks, the two MQ kernels on case (c)'s), then
+drives grok_tpu_torch.compress / decompress with their defaults (the card)
+on three cases:
 
   (a) BASELINE config 1: 512x512 8-bit gray, 6 resolutions, MQ coder;
   (b) a 3840x2160 8-bit RGB frame, lossless 5/3 + RCT, 6 resolutions,
@@ -21,9 +23,14 @@ Each case must write the same bytes as the port's plain route (its twins,
 device="cpu") and its host route (backend="native") in this process,
 decode bit-exact, raise every launch counter of its path (case (b): one
 launch of each level kernel a DWT level, one of each RCT kernel, one of
-each HT kernel) and send no tile down the host path; case (b) says how
-many codeblocks each direction coded on the card and on the native coder,
-and where its Tier-1 time goes.  No jax and no grok_tpu module may load.
+each HT kernel; cases (a) and (c): one MQ encode and one MQ decode launch
+a tile) and send no tile down the host path; each case says how many
+codeblocks each direction coded on the card and on the native coder, and
+cases (b) and (c) where their Tier-1 time goes.  Case (c)'s plain route
+(the MQ twins on the CPU, slow at 16 tiles) is compared on its first
+512x512 tile coded as an image of its own; a multi-layer variant of (c)
+(layer_rates [40, 10, 1], the distortion-tracking path) is held to the
+host route.  No jax and no grok_tpu module may load.
 Every phase raises on failure.  The last two lines are one JSON object with
 the kernels' launches, errors, times and bounds, and the ok line.  Exits
 nonzero, printing neither, when no CUDA device is present.
@@ -31,6 +38,7 @@ nonzero, printing neither, when no CUDA device is present.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -380,6 +388,223 @@ def time_ht(blocks, ht_encode, ht_decode, err):
     return times
 
 
+
+# ------------------------------------------------------------ MQ Tier-1
+
+def mq_err(a, b) -> int:
+    """Largest difference between two MQ encode results: codeword bytes
+    (256 for a length mismatch), numbps, rates, terminations, distortions
+    and e0."""
+    err = 0 if len(a.data) == len(b.data) else 256
+    for x, y in zip(a.data, b.data):
+        if len(x) != len(y):
+            err = max(err, 256)
+        elif x:
+            err = max(err, int(np.abs(np.frombuffer(x, np.uint8).astype(
+                int) - np.frombuffer(y, np.uint8)).max()))
+    for f in ("numbps", "rates", "terms", "dists", "e0"):
+        u, v = getattr(a, f), getattr(b, f)
+        if u.shape != v.shape:
+            err = max(err, 256)
+        elif u.size:
+            err = max(err, int(np.abs(u.astype(np.float64)
+                                      - v.astype(np.float64)).max()))
+    return err
+
+
+def mq_items(enc, shapes, orients, lazy):
+    """Decode items of every pass of an MQ encode result."""
+    from grok_tpu_torch.params import CblkStyle
+
+    items = []
+    for k, ((h, w), o, lz) in enumerate(zip(shapes, orients, lazy)):
+        n = enc.num_passes(k)
+        seg, last = [], 0
+        for i in range(n):
+            if enc.terms[k, i] or i == n - 1:
+                seg.append(int(enc.rates[k, i]) - last)
+                last = int(enc.rates[k, i])
+        items.append((enc.data[k], seg, n, int(enc.numbps[k]), h, w, o,
+                      CblkStyle.LAZY if lz else CblkStyle.NONE))
+    return items
+
+
+def check_mq_pair(mq_encode, mq_decode, blocks, orients, lazy, dist, items,
+                  err):
+    """Kernel against twin: the encode of `blocks` (tensors on the card,
+    the twin on CPU copies), then the decode of their codewords and of
+    `items`; returns the kernel's encode result."""
+    enc = ref = None
+    if blocks:
+        enc = mq_encode.encode_cblks_mq(blocks, orients, lazy, dist)
+        ref = mq_encode.encode_cblks_mq_plain([b.cpu() for b in blocks],
+                                              orients, lazy, dist)
+        err["mq_encode"] = max(err["mq_encode"], mq_err(enc, ref))
+        n = len(blocks)
+        lz = lazy if isinstance(lazy, list) else [lazy] * n
+        items = mq_items(enc, [tuple(b.shape) for b in blocks],
+                         orients if isinstance(orients, list)
+                         else [orients] * n, lz) + items
+    if items:
+        got = mq_decode.decode_cblks_mq(items, "cuda")
+        want = mq_decode.decode_cblks_mq_plain(items, "cpu")
+        err["mq_decode"] = max([err["mq_decode"]] + [
+            max_err(g.cpu(), w) for g, w in zip(got, want)])
+    return enc
+
+
+def band_blocks(bands, size=64):
+    """The codeblocks of (C, B, h, w) band tensors on a size x size grid,
+    as views, with their orients: every block of component c of tile b,
+    tile by tile."""
+    blocks, orients = [], []
+    first = next(iter(bands.values()))
+    for b in range(first.shape[1]):
+        for c in range(first.shape[0]):
+            for (_, orient), v in bands.items():
+                band = v[c, b]
+                h, w = band.shape
+                for y in range(0, h, size):
+                    for x0 in range(0, w, size):
+                        blocks.append(band[y:y + size, x0:x0 + size])
+                        orients.append(orient)
+    return blocks, orients
+
+
+def check_mq(mq_encode, mq_decode, cases, blocks_a, orients_a):
+    """The MQ kernels against their twins on tests/torch_mq_cases.py's
+    inputs (grok_tpu's test shapes and styles, all-zero blocks, magnitudes
+    up to 2^20; distortion-tracked blocks; mixed shapes, styles and
+    flags in one launch; pass-capped, corrupt and truncated streams) and
+    on case (a)'s 70 codeblocks; numbps above the limits refused."""
+    rng = np.random.default_rng(SEED)
+    err = {"mq_encode": 0, "mq_decode": 0}
+    cuda = (lambda bl: [torch.from_numpy(np.ascontiguousarray(b)).cuda()
+                        for b in bl])
+    for case in cases.ENC_CASES:
+        for style in cases.STYLES:
+            bl = cases.enc_blocks(rng, *case)
+            check_mq_pair(mq_encode, mq_decode, cuda(bl),
+                          rng.integers(0, 4, len(bl)).tolist(),
+                          int(style != cases.STYLES[0]), 0, [], err)
+    for lazy in (0, 1):
+        check_mq_pair(mq_encode, mq_decode, cuda(cases.dist_blocks(rng)), 0,
+                      lazy, 1, [], err)
+    mixed = cases.mixed_blocks(rng)
+    n = len(mixed)
+    check_mq_pair(mq_encode, mq_decode, cuda(mixed),
+                  rng.integers(0, 4, n).tolist(),
+                  rng.integers(0, 2, n).tolist(),
+                  [int(np.abs(b).max(initial=0) < (1 << 20)) for b in mixed],
+                  [], err)
+    items = cases.dec_items(rng, mixed, [cases.STYLES[k % 2]
+                                         for k in range(n)])
+    check_mq_pair(mq_encode, mq_decode, [], 0, 0, 0,
+                  items + cases.corrupt_items(rng, items), err)
+    check_mq_pair(mq_encode, mq_decode, blocks_a, orients_a, 1, 0, [], err)
+    for v, dist in ((1 << 26, 0), (1 << 20, 1), (INT_MIN, 0)):
+        block = torch.zeros((8, 8), dtype=torch.int32, device="cuda")
+        block[3, 4] = v
+        try:
+            mq_encode.encode_cblks_mq([block], 0, 0, dist)
+        except ValueError:
+            continue
+        raise AssertionError(f"mq_encode took a magnitude of {v}")
+    return err
+
+
+def time_mq(blocks, orients, sub, mq_encode, mq_decode, err):
+    """The MQ kernels on case (c)'s codeblock population (style LAZY, as
+    the codec codes it): each per launch and amortised, the wrapper with
+    its copies and host work; the twin on the card on the first `sub`
+    blocks (one tile: its time is set by the longest chain of decisions,
+    not by the count of blocks), held to the kernel's results there.
+    Bounds from the bytes (encode: 4 B a coefficient in, the codewords
+    out; decode: the codewords in, 4 B a sample out; scratch not counted).
+    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    samples = sum(b.numel() for b in blocks)
+    args = mq_encode.encode_args(blocks, orients, [1] * len(blocks),
+                                 [0] * len(blocks), [26] * len(blocks), dev)
+    k_enc = time_ms(lambda: mq_encode.launch_encode(args, dev))
+    chains = args[4][:, 5].cpu().numpy()
+    w_enc = time_once(lambda: mq_encode.encode_cblks_mq(blocks, orients, 1))
+    enc = mq_encode.encode_cblks_mq(blocks, orients, 1)
+    code_bytes = sum(len(d) for d in enc.data)
+    p_enc = time_once(lambda: mq_encode.encode_cblks_mq_plain(
+        blocks[:sub], orients[:sub], 1))
+    part = mq_encode.encode_cblks_mq_plain(blocks[:sub], orients[:sub], 1)
+    head = type(enc)(enc.data[:sub], enc.numbps[:sub], enc.rates[:sub],
+                     enc.terms[:sub], enc.dists[:sub], enc.e0[:sub])
+    err["mq_encode"] = max(err["mq_encode"], mq_err(head, part))
+    items = mq_items(enc, [tuple(b.shape) for b in blocks], orients,
+                     [1] * len(blocks))
+    outs = [torch.empty(b.shape, dtype=torch.int32, device=dev)
+            for b in blocks]
+    dargs = mq_decode.decode_args(items, dev, outs)
+    k_dec = time_ms(lambda: mq_decode.launch_decode(dargs, dev))
+    w_dec = time_once(lambda: mq_decode.decode_cblks_mq(items, dev))
+    p_dec = time_once(lambda: mq_decode.decode_cblks_mq_plain(items[:sub],
+                                                              dev))
+    want = mq_decode.decode_cblks_mq_plain(items[:sub], dev)
+    err["mq_decode"] = max([err["mq_decode"]] + [
+        max_err(o, w) for o, w in zip(outs[:sub], want)])
+    times = {}
+    longest = int(chains.max())
+    for name, (k_single, k_amort), wrapper, plain, nbytes in (
+            ("mq_encode", k_enc, w_enc, p_enc, 4 * samples + code_bytes),
+            ("mq_decode", k_dec, w_dec, p_dec, code_bytes + 4 * samples)):
+        bound = 1e3 * nbytes / PEAK_BYTES_S
+        log(f"time {name:24s} {len(blocks)} codeblocks, {samples} samples, "
+            f"{code_bytes} codeword B, bound on {nbytes} B: kernel "
+            f"{k_single:.4f} ms per launch, {k_amort:.4f} ms amortised; "
+            f"longest chain {longest} decisions ({int(chains.mean())} on "
+            f"average), {1e6 * k_amort / longest:.1f} ns a decision of it; "
+            f"wrapper (copies, descriptors, slicing) {wrapper:.1f} ms; twin "
+            f"on the card ({sub} blocks) {plain:.1f} ms; bound "
+            f"{bound:.4f} ms (bytes); no single PyTorch call")
+        times[name] = (k_amort, plain, bound, "bytes")
+    return times
+
+
+def mq_breakdown(arr, kw, data):
+    """Case (c)'s MQ Tier-1 split over one encode and one decode: card MQ
+    (the kernels, the host work around them: descriptors and the upload,
+    the copies back and the slicing) against the host route's whole-tile
+    native Tier-1 (backend="native")."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+    from grok_tpu_torch.ops import mq_decode, mq_encode
+    from grok_tpu_torch.t1 import backend as t1
+    from grok_tpu_torch.tile import processor
+
+    tc, td = processor.TileCompressor, processor.TileDecompressor
+    img = GrkImage.from_array(arr)
+    with Timed(card=(t1, "_encode_mq_device"),
+               args=(mq_encode, "encode_args"),
+               kernel=(mq_encode, "launch_encode"),
+               finish=(mq_encode, "finish_encode")) as enc:
+        grok_tpu_torch.compress(img, CompressParams(**kw))
+    with Timed(card=(t1, "_decode_mq_device"),
+               args=(mq_decode, "decode_args"),
+               kernel=(mq_decode, "launch_decode")) as dec:
+        grok_tpu_torch.decompress(data)
+    with Timed(host=(tc, "_run_t1_tile_native_enc")) as henc:
+        grok_tpu_torch.compress(img, CompressParams(backend="native", **kw))
+    with Timed(host=(td, "_run_t1_tile_native")) as hdec:
+        grok_tpu_torch.decompress(data, DecompressParams(backend="native"))
+    e, d = enc.ms, dec.ms
+    log(f"stages (c) MQ Tier-1 ms: encode card MQ {e['card']:.1f} "
+        f"(descriptors and upload {e['args']:.1f}, kernel {e['kernel']:.1f}, "
+        f"copies back and slicing {e['finish']:.1f}, the rest of the router "
+        f"{e['card'] - e['args'] - e['kernel'] - e['finish']:.1f}), host "
+        f"route whole-tile native {henc.ms['host']:.1f}; decode card MQ "
+        f"{d['card']:.1f} (joining, descriptors and upload {d['args']:.1f}, "
+        f"kernel {d['kernel']:.1f}, the rest of the router "
+        f"{d['card'] - d['args'] - d['kernel']:.1f}), host route "
+        f"whole-tile native {hdec.ms['host']:.1f}")
+
+
 class Timed:
     """Accumulate the host-clock ms of calls to module attributes, each
     call ending in a synchronize, while the context is open."""
@@ -434,10 +659,21 @@ def tier1_breakdown(arr, kw, data):
             grok_tpu_torch.compress(GrkImage.from_array(arr),
                                     CompressParams(**kw))
         with Timed(card=(t1, "_decode_ht_device"),
+                   into=(t1, "_decode_into"),
+                   dests=(ht_decode, "_dests"),
                    args=(ht_decode, "decode_args"),
                    kernel=(ht_decode, "launch_decode"),
                    host=(holder, "decode")) as dec:
             grok_tpu_torch.decompress(data)
+        # the same decode with Python's garbage collector off (measurement
+        # only): what the collector costs over the router's objects
+        gc.collect()
+        gc.disable()
+        try:
+            with Timed(card=(t1, "_decode_ht_device")) as nogc:
+                grok_tpu_torch.decompress(data)
+        finally:
+            gc.enable()
     finally:
         t1._HT_NATIVE = native
     e, d = enc.ms, dec.ms
@@ -445,13 +681,15 @@ def tier1_breakdown(arr, kw, data):
         f"and upload {e['args']:.1f}, kernel {e['kernel']:.1f}, copies back "
         f"and slicing into segments {e['finish']:.1f}, the rest of the "
         f"router {e['card'] - e['args'] - e['kernel'] - e['finish']:.1f}), "
-        f"host HT {e['host']:.1f}; decode card HT {d['card']:.1f} (joining, "
-        f"descriptors and upload {d['args']:.1f}, kernels {d['kernel']:.1f}, "
-        f"the rest of the router {d['card'] - d['args'] - d['kernel']:.1f}), "
-        f"host HT {d['host']:.1f}")
+        f"host HT {e['host']:.1f}; decode card HT {d['card']:.1f} (the job "
+        f"list {d['card'] - d['into']:.1f}, validating the destinations "
+        f"{d['dests']:.1f}, joining, descriptors and upload "
+        f"{d['args']:.1f}, kernels {d['kernel']:.1f}, output buffer, copy "
+        f"back and bookkeeping "
+        f"{d['into'] - d['dests'] - d['args'] - d['kernel']:.1f}), host HT "
+        f"{d['host']:.1f}; the decode router with the garbage collector off "
+        f"{nogc.ms['card']:.1f}")
 
-
-# ------------------------------------------------------------------ timing
 
 def time_ms(fn) -> tuple[float, float]:
     """(per-launch ms: median of single launches each synchronized,
@@ -528,13 +766,17 @@ def time_kernels(gen, dwt, mct):
 
 # ------------------------------------------------------------- codec cases
 
-def codec_case(name, arr, kw, expect, counters, exact=None):
+def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
+               mq=None):
     """Encode and decode `arr` through grok_tpu_torch on the card, with
     the entry points' defaults; check the bytes against the port's plain
-    route (its twins on the CPU) and its host route (backend="native"),
-    the decode against the input, and the launch and host-path counters
-    (every counter in `expect` risen; `exact`, if given, the counts
-    exactly).  Returns the launch counts and the encoded bytes."""
+    route (its twins on the CPU: on `arr`, or, with plain an array, on that
+    array coded on the card and on the plain route on its own; with plain
+    False not at all) and its host route (backend="native"), the decode
+    against the input, and the launch and host-path counters (every
+    counter in `expect` risen; `exact`, if given, the counts exactly; `mq`,
+    if given, the MQ codeblock counts exactly).  Returns the launch counts
+    and the encoded bytes."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
     from grok_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -544,13 +786,26 @@ def codec_case(name, arr, kw, expect, counters, exact=None):
     img = GrkImage.from_array(arr)
     pixels = arr.shape[0] * arr.shape[1]
 
-    t = time.perf_counter()
-    plain = grok_tpu_torch.compress(img, CompressParams(**kw), device="cpu")
-    plain_s = time.perf_counter() - t
-    log(f"case {name}: the plain route (twins on the CPU) encoded in "
-        f"{plain_s:.1f} s" + (" (more than 60 s)" if plain_s > 60 else ""))
+    refs = []
+    if plain is not False:
+        own = arr if plain is True else plain
+        t = time.perf_counter()
+        ref = grok_tpu_torch.compress(GrkImage.from_array(own),
+                                      CompressParams(**kw), device="cpu")
+        plain_s = time.perf_counter() - t
+        what = "" if plain is True else f" on a {own.shape} part"
+        log(f"case {name}: the plain route (twins on the CPU) encoded{what} "
+            f"in {plain_s:.1f} s" + (" (more than 60 s)" if plain_s > 60
+                                    else ""))
+        if plain is True:
+            refs.append((ref, "plain route"))
+        elif grok_tpu_torch.compress(GrkImage.from_array(own),
+                                     CompressParams(**kw)) != ref:
+            raise AssertionError(f"case {name}: the card's codestream of "
+                                 f"{own.shape} differs from the plain route")
     host = grok_tpu_torch.compress(img, CompressParams(backend="native",
                                                        **kw))
+    refs.append((host, "host route"))
     reset_launches()
     for counts in (HOST_PATH_TILES, DEVICE_CODEBLOCKS):
         for k in counts:
@@ -560,7 +815,7 @@ def codec_case(name, arr, kw, expect, counters, exact=None):
     counts = dict(LAUNCHES)
     host_tiles = dict(HOST_PATH_TILES)
     blocks = dict(DEVICE_CODEBLOCKS)
-    for ref, route in ((plain, "plain route"), (host, "host route")):
+    for ref, route in refs:
         if data != ref:
             raise AssertionError(f"case {name}: codestream differs from the "
                                  f"{route} ({len(data)} vs {len(ref)} bytes)")
@@ -575,15 +830,21 @@ def codec_case(name, arr, kw, expect, counters, exact=None):
     if any(host_tiles.values()):
         raise AssertionError(f"case {name}: tiles took the host path: "
                              f"{host_tiles}")
-    log(f"case {name}: {len(data)} bytes identical to the plain and host "
-        f"routes, decode bit-exact, launches {counts}, host-path tiles "
-        f"{host_tiles}")
-    log(f"case {name}: codeblocks through Tier-1 under backend=device: "
+    if mq is not None and any(blocks[k] != v for k, v in mq.items()):
+        raise AssertionError(f"case {name}: MQ codeblocks {blocks}, "
+                             f"expected {mq}")
+    log(f"case {name}: {len(data)} bytes identical to the "
+        f"{' and '.join(r for _, r in refs)}, decode bit-exact, launches "
+        f"{counts}, host-path tiles {host_tiles}")
+    log(f"case {name}: codeblocks through Tier-1 under backend=device: HT "
         f"encode {blocks['encode_device']} on the card, "
-        f"{blocks['encode_host']} on the native coder; decode "
+        f"{blocks['encode_host']} on the native coder; HT decode "
         f"{blocks['decode_device']} on the card, {blocks['decode_host']} "
-        f"on the native coder; e0 summed on the host for "
-        f"{blocks['e0_host']}")
+        f"on the native coder; MQ encode {blocks['mq_encode_device']} on the "
+        f"card, {blocks['mq_encode_host']} on the native coder; MQ decode "
+        f"{blocks['mq_decode_device']} on the card, "
+        f"{blocks['mq_decode_host']} on the native coder; e0 summed on the "
+        f"host for {blocks['e0_host']}")
 
     def encode(backend):
         def run():
@@ -667,7 +928,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
     import torch_ht_cases  # the HT inputs the tests use
-    from grok_tpu_torch.ops import dwt, ht_decode, ht_encode, mct, pipeline
+    import torch_mq_cases  # the MQ inputs the tests use
+    from grok_tpu_torch.ops import (dwt, ht_decode, ht_encode, mct,
+                                    mq_decode, mq_encode, pipeline)
     from grok_tpu_torch.t1 import ht_tables
 
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -692,6 +955,12 @@ def main() -> int:
     err = check_levels(gen, dwt)
     err.update(check_rct(gen, mct))
     err.update(check_ht(ht_encode, ht_decode, ht_tables, torch_ht_cases))
+    gray = make_image()
+    bands_a = pipeline.analysis(
+        torch.from_numpy(gray.astype(np.int32)[None, None]).cuda(),
+        numres=6, reversible=True, mct=0, prec=8, sgnd=False)
+    err.update(check_mq(mq_encode, mq_decode, torch_mq_cases,
+                        *band_blocks(bands_a)))
     torch.cuda.synchronize()
     log(f"kernel vs twin max abs err: {err}")
     if any(err.values()):
@@ -700,33 +969,66 @@ def main() -> int:
     uhd = make_rgb(*UHD, seed=SEED)
     times.update(time_ht(ht_population(uhd, pipeline), ht_encode, ht_decode,
                          err))
+    rgb_c = make_rgb(2048, 2048, SEED)
+    tiles = np.moveaxis(rgb_c.astype(np.int32), -1, 0).reshape(
+        3, 4, 512, 4, 512).transpose(0, 1, 3, 2, 4).reshape(3, 16, 512, 512)
+    bands_c = pipeline.analysis(torch.from_numpy(np.ascontiguousarray(
+        tiles)).cuda(), numres=6, reversible=True, mct=1, prec=8, sgnd=False)
+    times.update(time_mq(*band_blocks(bands_c), 210, mq_encode, mq_decode,
+                         err))
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their twins: {err}")
 
     lift = ("fwd53_level", "inv53_level")
     transforms = lift + ("rct_forward_shift", "rct_inverse_unshift")
-    every = transforms + ("ht_encode", "ht_destuff", "ht_decode",
-                          "ht_magsgn")
+    ht = ("ht_encode", "ht_destuff", "ht_decode", "ht_magsgn")
+    mq = ("mq_encode", "mq_decode")
+    every = transforms + ht + mq
     if set(LAUNCHES) != set(every):
         raise AssertionError(f"launch counters {sorted(LAUNCHES)}, "
                              f"expected {sorted(every)}")
     card_note = f"card {card}"
-    codec_case("a config-1 512x512 gray MQ", make_image(),
-               dict(numresolution=6), lift, card_note)
+    # case (a): one tile, one launch of each level kernel a level and one
+    # MQ launch each way; 70 codeblocks coded on the card, 63 decoded there
+    # (grok_tpu's router decodes shape groups of 8 or more on its device)
+    codec_case("a config-1 512x512 gray MQ", gray, dict(numresolution=6),
+               lift + mq, card_note,
+               exact=dict(LAUNCHES, fwd53_level=5, inv53_level=5,
+                          rct_forward_shift=0, rct_inverse_unshift=0,
+                          **dict.fromkeys(ht, 0), mq_encode=1, mq_decode=1),
+               mq=dict(mq_encode_device=70, mq_encode_host=0,
+                       mq_decode_device=63, mq_decode_host=7))
     # the main path: one launch of each level kernel a level, five levels,
     # and one of each HT kernel for the tile's even codeblocks (decode: the
     # destuffing, chain and MagSgn launches)
     kw_b = dict(numresolution=6, ht=True)
     counts, data_b = codec_case(
-        "b 3840x2160 RGB HT lossless", uhd, kw_b, every, card_note,
+        "b 3840x2160 RGB HT lossless", uhd, kw_b, transforms + ht,
+        card_note,
         exact={"fwd53_level": 5, "inv53_level": 5, "rct_forward_shift": 1,
                "rct_inverse_unshift": 1, "ht_encode": 1, "ht_destuff": 1,
-               "ht_decode": 1, "ht_magsgn": 1})
-    codec_case("c 2048x2048 RGB 512^2 tiles MQ", make_rgb(2048, 2048, SEED),
-               dict(numresolution=6, tile_size=(512, 512)), transforms,
-               card_note)
+               "ht_decode": 1, "ht_magsgn": 1, "mq_encode": 0,
+               "mq_decode": 0})
+    # case (c): 16 tiles, 210 codeblocks a tile on the card each way; its
+    # plain route on its first tile coded as an image of its own
+    kw_c = dict(numresolution=6, tile_size=(512, 512))
+    mq_c = dict(mq_encode_device=3360, mq_encode_host=0,
+                mq_decode_device=3360, mq_decode_host=0)
+    counts_c, data_c = codec_case(
+        "c 2048x2048 RGB 512^2 tiles MQ", rgb_c, kw_c, transforms + mq,
+        card_note, plain=rgb_c[:512, :512], mq=mq_c)
+    for k in mq:
+        if counts_c[k] != 16:
+            raise AssertionError(f"case c: {counts_c[k]} {k} launches, "
+                                 "expected one a tile")
+    # the MQ kernels' launches are those of their own path, case (c)
+    counts.update({k: counts_c[k] for k in mq})
+    codec_case("c-layers 2048x2048 RGB 512^2 tiles MQ, layer_rates "
+               "[40, 10, 1]", rgb_c, dict(kw_c, layer_rates=[40, 10, 1]),
+               transforms + mq, card_note, plain=False, mq=mq_c)
     stage_breakdown(uhd)
     tier1_breakdown(uhd, kw_b, data_b)
+    mq_breakdown(rgb_c, kw_c, data_c)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))
     if loaded:
@@ -750,12 +1052,16 @@ def main() -> int:
                       "grok_tpu/ops/ht_decode.py:194"),
         "ht_magsgn": ("grok_tpu_torch/csrc/ht_decode.cu",
                       "grok_tpu/ops/ht_decode.py:194"),
+        "mq_encode": ("grok_tpu_torch/csrc/mq_encode.cu",
+                      "grok_tpu/ops/mq_encode.py:729"),
+        "mq_decode": ("grok_tpu_torch/csrc/mq_decode.cu",
+                      "grok_tpu/ops/mq_decode.py:340"),
     }
     for name in every:
         source, tpu = replaces[name]
         ms, plain_ms, bound_ms, bound_by = times[name]
         # no single PyTorch call computes a 5/3 level, the fused RCT, an HT
-        # cleanup pass or HT destuffing
+        # cleanup pass, HT destuffing or an MQ Tier-1 pass
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": tpu, "launches": counts[name],
                         "max_abs_err": err[name], "ms": ms,

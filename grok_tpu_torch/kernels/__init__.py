@@ -19,7 +19,7 @@ from . import build
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("fwd53_level", "inv53_level", "rct_forward_shift",
      "rct_inverse_unshift", "ht_encode", "ht_destuff", "ht_decode",
-     "ht_magsgn"), 0)
+     "ht_magsgn", "mq_encode", "mq_decode"), 0)
 
 
 def reset_launches() -> None:

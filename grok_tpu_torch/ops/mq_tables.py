@@ -1,0 +1,79 @@
+"""Tables and limits of the MQ Tier-1 coders: the port of the top of
+grok_tpu/ops/mq_encode.py (`_build_luts`, `_INIT_CTX` and the constants).
+
+The tables are built from the port's own Tier-1 definitions
+(t1/coder.py `_zc_context` and `_SC_TABLE`, t1/mq.py `QE_TABLE`):
+- ZC_LUT[orient, f]: the zero-coding context of an 8-bit neighbour
+  significance pattern f, bits NW N NE W E SW S SE from bit 0;
+- SC_CN[f], SC_XOR[f]: the sign-coding context and XOR bit of an 8-bit
+  pattern, bits W-sig W-neg E-sig E-neg N-sig N-neg S-sig S-neg;
+- QE, NMPS, NLPS: the MQ probability table packed by si = state * 2 + mps,
+  so one index gives Qe and both successors (NLPS folds in the MPS
+  switch);
+- INIT_CTX: the si of every context at the start of a codeblock.
+
+The limits decide which codeblocks the device routers take, so they are
+the reference's: NUMBPS_BUCKETS, MAX_NUMBPS_DEVICE (26) and
+MAX_NUMBPS_DIST (20, where every distortion partial sum stays an integer
+below 2^53).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..t1.coder import _SC_TABLE, _zc_context
+from ..t1.mq import QE_TABLE
+
+CTX_ZC, CTX_SC, CTX_MAG, CTX_RL, CTX_UNI = 0, 9, 14, 17, 18
+NUM_CTX = 19
+# the reference's numbps buckets (one jit specialisation each there); the
+# largest is the device range
+NUMBPS_BUCKETS = (8, 14, 22, 26)
+MAX_NUMBPS_DEVICE = NUMBPS_BUCKETS[-1]
+MAX_NUMBPS_DIST = 20
+
+
+def _build_luts():
+    zc = np.zeros((4, 256), dtype=np.uint8)
+    for orient in range(4):
+        for f in range(256):
+            h = ((f >> 3) & 1) + ((f >> 4) & 1)
+            v = ((f >> 1) & 1) + ((f >> 6) & 1)
+            d = (f & 1) + ((f >> 2) & 1) + ((f >> 5) & 1) + ((f >> 7) & 1)
+            zc[orient, f] = _zc_context(h, v, d, orient)
+    sc_cn = np.zeros(256, dtype=np.uint8)
+    sc_xor = np.zeros(256, dtype=np.uint8)
+    for idx in range(256):
+        def contrib(sb, nb):
+            if not (idx >> sb) & 1:
+                return 0
+            return -1 if (idx >> nb) & 1 else 1
+        hc = max(-1, min(1, contrib(0, 1) + contrib(2, 3)))
+        vc = max(-1, min(1, contrib(4, 5) + contrib(6, 7)))
+        off, xr = _SC_TABLE[(hc, vc)]
+        sc_cn[idx] = CTX_SC + off
+        sc_xor[idx] = xr
+    qe = np.zeros(94, dtype=np.uint32)
+    nmps = np.zeros(94, dtype=np.uint8)
+    nlps = np.zeros(94, dtype=np.uint8)
+    for s, (q, nm, nl, sw) in enumerate(QE_TABLE):
+        for mps in range(2):
+            qe[s * 2 + mps] = q
+            nmps[s * 2 + mps] = nm * 2 + mps
+            nlps[s * 2 + mps] = nl * 2 + (mps ^ sw)
+    return zc, sc_cn, sc_xor, qe, nmps, nlps
+
+
+ZC_LUT, SC_CN, SC_XOR, QE, NMPS, NLPS = _build_luts()
+
+INIT_CTX = np.zeros(NUM_CTX, dtype=np.uint8)
+INIT_CTX[CTX_ZC] = 4 * 2
+INIT_CTX[CTX_RL] = 3 * 2
+INIT_CTX[CTX_UNI] = 46 * 2
+
+
+def out_capacity(h: int, w: int, numbps: int) -> int:
+    """Bytes a codeblock's codeword may take: the native coder's bound
+    (native/t1.cc), h * w * numbps / 3 + 1024."""
+    return h * w * max(numbps, 1) // 3 + 1024

@@ -8,13 +8,15 @@ dispatch between implementations:
   (HT), always available, the correctness oracle
 - "native": C++ batch coder (native/t1.cc via ctypes), threads across
   codeblocks — the production host path; "auto" resolves to it
-- "device": HT codeblocks with even height and width (and, on encode,
-  numbps_bound <= 25) go through the HT cleanup kernels on the torch device
-  the tile processor passes in (ops/ht_encode.py, ops/ht_decode.py: the
-  CUDA kernels on a card, their plain twins on the CPU), exactly the blocks
-  grok_tpu's device routers take.  Ragged HT blocks, and every MQ block
-  until the MQ device coders are ported (ROADMAP A11/A12), code on the
-  native coder.
+- "device": the codeblocks grok_tpu's device routers take code on the
+  torch device the tile processor passes in (the CUDA kernels on a card,
+  their plain twins on the CPU): HT blocks with even height and width (and,
+  on encode, numbps_bound <= 25) through the HT cleanup coders
+  (ops/ht_encode.py, ops/ht_decode.py); MQ blocks of style NONE or LAZY
+  with numbps_bound <= 26 (<= 20 when distortions are tracked) through the
+  MQ coders (ops/mq_encode.py, ops/mq_decode.py), on decode only in groups
+  of at least 8 blocks of one shape, as the reference's router gates them.
+  The rest code on the native coder.
 
 Batch API: lists of codeblock jobs so the native backend can parallelize
 freely (SURVEY.md §2.3 "codeblock-batch axis").
@@ -82,13 +84,15 @@ class LazyPasses:
 
 
 # codeblocks coded through encode_batch / decode_batch under
-# backend="device", by direction and coder: "device" is the HT kernels (or
-# their twins on the CPU), "host" the native or Python coder; "e0_host"
-# counts device-coded blocks whose distortion e0 was summed on the host
-# (sum of squares above 2^53, see _e0)
+# backend="device", by direction and coder: "encode_device" and friends
+# count HT blocks, "mq_encode_device" and friends MQ blocks; "device" is
+# the kernels (or their twins on the CPU), "host" the native or Python
+# coder; "e0_host" counts device-coded HT blocks whose distortion e0 was
+# summed on the host (sum of squares above 2^53, see _e0)
 DEVICE_CODEBLOCKS: dict[str, int] = dict.fromkeys(
     ("encode_device", "encode_host", "decode_device", "decode_host",
-     "e0_host"), 0)
+     "mq_encode_device", "mq_encode_host", "mq_decode_device",
+     "mq_decode_host", "e0_host"), 0)
 
 
 @dataclass
@@ -223,6 +227,24 @@ def ht_device_eligible(h: int, w: int, numbps_bound: int = 0) -> bool:
     return h % 2 == 0 and w % 2 == 0 and numbps_bound <= MAX_NUMBPS_DEVICE
 
 
+def mq_device_eligible(style, numbps_bound: int,
+                       need_dist: bool = False) -> bool:
+    """The MQ blocks grok_tpu's device encode router takes: style NONE or
+    LAZY and numbps_bound <= MAX_NUMBPS_DEVICE (26), or <= MAX_NUMBPS_DIST
+    (20) when distortions are tracked."""
+    from ..ops.mq_tables import MAX_NUMBPS_DEVICE, MAX_NUMBPS_DIST
+
+    cap = MAX_NUMBPS_DIST if need_dist else MAX_NUMBPS_DEVICE
+    return CblkStyle(int(style)) in (CblkStyle.NONE, CblkStyle.LAZY) \
+        and numbps_bound <= cap
+
+
+# grok_tpu's decode router sends an MQ shape group to its device only from
+# this many blocks (there, to pay for a jit compile a shape); kept so the
+# same blocks decode on the card, corrupt streams included
+MQ_DECODE_MIN_GROUP = 8
+
+
 def _on_device(arrs, device: torch.device) -> list[torch.Tensor]:
     """The codeblocks as int32 tensors on `device`: torch views stay where
     they are (bands already on the device are read in place); numpy blocks
@@ -235,8 +257,8 @@ def _on_device(arrs, device: torch.device) -> list[torch.Tensor]:
         else:
             host[a.shape].append(i)
     for idx in host.values():
-        stack = torch.from_numpy(np.stack(
-            [np.asarray(arrs[i], dtype=np.int32) for i in idx])).to(device)
+        stack = torch.from_numpy(np.ascontiguousarray(np.stack(
+            [np.asarray(arrs[i], dtype=np.int32) for i in idx]))).to(device)
         for i, t in zip(idx, stack):
             out[i] = t
     return out
@@ -297,27 +319,94 @@ def _decode_ht_device(jobs: list[DecodeJob],
     for j in jobs:
         (dev if ht_device_eligible(j.h, j.w) else rest).append(j)
     if dev:
-        back = [j for j in dev if j.out_device is None]
-        flat = torch.empty(sum(j.h * j.w for j in back), dtype=torch.int32,
-                           device=device)
-        outs, k = [], 0
-        for j in dev:
-            if j.out_device is None:
-                outs.append(flat[k:k + j.h * j.w].view(j.h, j.w))
-                k += j.h * j.w
-            else:
-                outs.append(j.out_device)
-        dht.decode_cblks_ht([(j.data, j.h, j.w) for j in dev], device, outs)
-        host = flat.cpu().numpy()
-        k = 0
-        for j in dev:
-            if j.out_device is None:
-                j.out = host[k:k + j.h * j.w].reshape(j.h, j.w)
-                k += j.h * j.w
-            else:
-                j.device_done = True
+        _decode_into(dev, device, dht.decode_cblks_ht,
+                     [(j.data, j.h, j.w) for j in dev])
     DEVICE_CODEBLOCKS["decode_device"] += len(dev)
     return rest
+
+
+def _encode_mq_device(jobs: list[EncodeJob],
+                      device: torch.device) -> list[EncodeJob]:
+    """Code the device-eligible MQ jobs in one call of the MQ encoder (mixed
+    shapes and styles together); returns the jobs left for the host
+    coder."""
+    from ..ops import mq_encode as dmq
+
+    dev: list[EncodeJob] = []
+    rest: list[EncodeJob] = []
+    for j in jobs:
+        (dev if mq_device_eligible(j.style, j.numbps_bound, j.need_dist)
+         else rest).append(j)
+    if dev:
+        res = dmq.encode_cblks_mq(
+            _on_device([j.coeffs for j in dev], device),
+            [j.orient for j in dev],
+            [CblkStyle(int(j.style)) == CblkStyle.LAZY for j in dev],
+            [j.need_dist for j in dev],
+            numbps_bound=[j.numbps_bound for j in dev])
+        for k, j in enumerate(dev):
+            nb = int(res.numbps[k])
+            n = res.num_passes(k)
+            j.data, j.numbps = res.data[k], nb
+            j.passes = LazyPasses(res.rates[k, :n], res.dists[k, :n],
+                                  res.terms[k, :n], nb)
+            j.e0_out = float(res.e0[k]) if j.need_dist else None
+    DEVICE_CODEBLOCKS["mq_encode_device"] += len(dev)
+    return rest
+
+
+def _decode_mq_device(jobs: list[DecodeJob],
+                      device: torch.device) -> list[DecodeJob]:
+    """Decode the MQ jobs grok_tpu's router sends to its device (style NONE
+    or LAZY, 0 <= numbps <= 26, shape groups of MQ_DECODE_MIN_GROUP or
+    more) in one call of the MQ decoder, mixed shapes together.  A job
+    with `out_device` is written there; the others come back to the host
+    in one copy.  Returns the jobs left for the host decoder."""
+    from ..ops import mq_decode as dmqd
+    from ..ops.mq_tables import MAX_NUMBPS_DEVICE
+
+    groups: dict = defaultdict(list)
+    rest: list[DecodeJob] = []
+    for j in jobs:
+        if CblkStyle(int(j.style)) not in (CblkStyle.NONE, CblkStyle.LAZY) \
+                or not 0 <= j.numbps <= MAX_NUMBPS_DEVICE:
+            rest.append(j)
+            continue
+        groups[(j.h, j.w)].append(j)
+    dev: list[DecodeJob] = []
+    for g in groups.values():
+        (dev if len(g) >= MQ_DECODE_MIN_GROUP else rest).extend(g)
+    if dev:
+        _decode_into(dev, device, dmqd.decode_cblks_mq,
+                     [(j.data, j.seg_lengths, j.num_passes, j.numbps, j.h,
+                       j.w, j.orient, j.style) for j in dev])
+    DEVICE_CODEBLOCKS["mq_decode_device"] += len(dev)
+    return rest
+
+
+def _decode_into(dev, device, decode, items) -> None:
+    """Run `decode(items, device, outs)`: a job with `out_device` is
+    written there, the others into one flat tensor that comes back to the
+    host in one copy."""
+    back = [j for j in dev if j.out_device is None]
+    flat = torch.empty(sum(j.h * j.w for j in back), dtype=torch.int32,
+                       device=device)
+    outs, k = [], 0
+    for j in dev:
+        if j.out_device is None:
+            outs.append(flat[k:k + j.h * j.w].view(j.h, j.w))
+            k += j.h * j.w
+        else:
+            outs.append(j.out_device)
+    decode(items, device, outs)
+    host = flat.cpu().numpy()
+    k = 0
+    for j in dev:
+        if j.out_device is None:
+            j.out = host[k:k + j.h * j.w].reshape(j.h, j.w)
+            k += j.h * j.w
+        else:
+            j.device_done = True
 
 
 def _need_device(device) -> torch.device:
@@ -333,15 +422,20 @@ def encode_batch(jobs: list[EncodeJob], backend: str = "device",
     cores).  Output is byte-identical for any thread count — jobs are
     independent and land in per-job buffers (the reference's determinism
     invariant, SURVEY.md §4).  `device` is where backend="device" codes
-    its HT blocks."""
+    its device-eligible blocks."""
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]
+    if mq_jobs and backend == "device":
+        for j in mq_jobs:
+            _materialize_quant(j)
+        mq_jobs = _encode_mq_device(mq_jobs, _need_device(device))
     if ht_jobs and backend == "device":
         for j in ht_jobs:
             _materialize_quant(j)
         ht_jobs = _encode_ht_device(ht_jobs, _need_device(device))
     if backend == "device":
-        DEVICE_CODEBLOCKS["encode_host"] += len(ht_jobs) + len(mq_jobs)
+        DEVICE_CODEBLOCKS["encode_host"] += len(ht_jobs)
+        DEVICE_CODEBLOCKS["mq_encode_host"] += len(mq_jobs)
     if ht_jobs:
         name = resolve(backend)
         for j in ht_jobs:  # native HT ingest has no fused quantizer
@@ -363,10 +457,13 @@ def decode_batch(jobs: list[DecodeJob], backend: str = "device",
                  num_threads: int = 0, device=None) -> None:
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]
+    if mq_jobs and backend == "device":
+        mq_jobs = _decode_mq_device(mq_jobs, _need_device(device))
     if ht_jobs and backend == "device":
         ht_jobs = _decode_ht_device(ht_jobs, _need_device(device))
     if backend == "device":
-        DEVICE_CODEBLOCKS["decode_host"] += len(ht_jobs) + len(mq_jobs)
+        DEVICE_CODEBLOCKS["decode_host"] += len(ht_jobs)
+        DEVICE_CODEBLOCKS["mq_decode_host"] += len(mq_jobs)
     if ht_jobs:
         name = resolve(backend)
         if name == "native" and _HT_NATIVE is not None and \

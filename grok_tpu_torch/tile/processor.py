@@ -9,15 +9,17 @@ compress; the mirror image on decompress.
 With a `device` set, eligible reversible tiles run their sample transforms
 on it through the port's pipeline (ops/pipeline.py, one host-to-device copy
 of the tile stack).  Every other tile takes the numpy host path here and is
-counted in HOST_PATH_TILES.  Under backend="device" the HT codeblocks that
-grok_tpu's device routers take (even height and width, numbps_bound <= 25)
-are Tier-1 coded on the device too (t1/backend.py): a tile with HT blocks
-keeps its bands on the device, the HT encoder reads its codeblocks there in
-place, and a band goes to the host only for the blocks the native coder
-codes (MQ, ragged HT); on decode the HT decoder writes its blocks straight
-into device band tensors that the synthesis takes, and the native coder's
-blocks go up as small copies.  Tiles with only MQ blocks keep the
-whole-tile native Tier-1 calls and their host bands.
+counted in HOST_PATH_TILES.  Under backend="device" the codeblocks that
+grok_tpu's device routers take are Tier-1 coded on the device too
+(t1/backend.py): HT blocks with even height and width (numbps_bound <= 25),
+and MQ blocks of style NONE or LAZY (numbps_bound <= 26, or <= 20 when
+distortions are tracked; on decode in shape groups of at least 8).  A tile
+with such blocks ("card Tier-1", _card_t1) skips the whole-tile native
+Tier-1 calls and keeps its bands on the device: the encoders read their
+codeblocks there in place, and a band goes to the host only for the blocks
+the native coder codes; on decode the device decoders write their blocks
+straight into device band tensors that the synthesis takes, and the native
+coder's blocks go up as small copies.
 """
 
 from __future__ import annotations
@@ -69,8 +71,11 @@ def host_backend(backend: str) -> str:
     return backend
 
 
-def _ht_tile(tcp) -> bool:
-    return any(t.ht for t in tcp.tccps)
+def _card_t1(tcp) -> bool:
+    """Whether backend="device" codes blocks of this tile on the device:
+    it has HT blocks, or MQ blocks of a style the device MQ coders take."""
+    return any(t.ht or t1_backend.mq_device_eligible(t.cblk_style, 0)
+               for t in tcp.tccps)
 
 
 # whole-tile encode scratch (arena + rates matrix), grown and reused per
@@ -411,11 +416,11 @@ class TileCompressor:
         # (its calibration re-decodes from per-codeblock state), as do
         # rate-quota early stop and ROI.
         self._enc_seq = None
-        ht_device = self.backend == "device" and _ht_tile(tcp)
+        card_t1 = self.backend == "device" and _card_t1(tcp)
         if (quota_scale is None
                 and not getattr(self.cp, "_has_quality_targets", False)
                 and t2._native is not None
-                and not ht_device
+                and not card_t1
                 and t1_backend.resolve(self.backend) == "native"
                 and not any(t.roi_shift for t in tcp.tccps)
                 and self._run_t1_tile_native_enc(need_dist)):
@@ -456,10 +461,14 @@ class TileCompressor:
                             # truncation where the energy is), HT elsewhere
                             use_ht = tccp.ht and not (mixed and res.resno == 0)
                             cblk.is_ht = use_ht
-                            if on_dev and not (
-                                    use_ht and not tccp.roi_shift
-                                    and t1_backend.ht_device_eligible(
-                                        cr.h, cr.w, band.numbps)):
+                            if use_ht:
+                                card = t1_backend.ht_device_eligible(
+                                    cr.h, cr.w, band.numbps)
+                            else:
+                                card = t1_backend.mq_device_eligible(
+                                    tccp.cblk_style, band.numbps,
+                                    need_dist)
+                            if on_dev and (tccp.roi_shift or not card):
                                 if host_band is None:
                                     host_band = coeffs.cpu().numpy()
                                 sl = host_band[
@@ -1738,8 +1747,8 @@ def _uniform_batch(tiles, eligible) -> bool:
 
 def _analyse(tcs: list[TileCompressor]) -> None:
     """Device analysis of a uniform batch of tiles; installs each tile
-    component's bands: device tensors for a tile whose HT blocks code on
-    the device, host int32 arrays otherwise."""
+    component's bands: device tensors for a tile with card Tier-1, host
+    int32 arrays otherwise."""
     first = tcs[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
@@ -1756,7 +1765,7 @@ def _analyse(tcs: list[TileCompressor]) -> None:
         torch.from_numpy(stack).to(first.device),
         numres=first.tcp.tccps[0].numresolutions, reversible=True,
         mct=first.tcp.mct, prec=comp0.prec, sgnd=comp0.sgnd)
-    keep = [t.backend == "device" and _ht_tile(t.tcp) for t in tcs]
+    keep = [t.backend == "device" and _card_t1(t.tcp) for t in tcs]
     host = ({k: v.cpu().numpy() for k, v in bands.items()}
             if not all(keep) else None)
     for bi, t in enumerate(tcs):
@@ -2190,9 +2199,10 @@ class TileDecompressor:
         self._dev_bands = None
         if self._run_t1_tile_native():
             return
-        if self.backend == "device" and _ht_tile(self.tcp) \
+        if self.backend == "device" and _card_t1(self.tcp) \
                 and self._device_eligible():
-            # the HT decoder writes into these; the synthesis takes them
+            # the device decoders write into these; the synthesis takes
+            # them
             self._dev_bands = {
                 k: torch.zeros(a.shape, dtype=torch.int32, device=self.device)
                 for k, a in self._band_arrays.items()}
@@ -2254,7 +2264,7 @@ class TileDecompressor:
                                 device=self.device)
         for job, (tc, res, band, cblk) in zip(jobs, meta):
             if job.device_done:
-                continue  # the device HT decoder wrote the device band
+                continue  # a device decoder wrote the device band
             key = (tc.compno, res.resno, band.orient)
             arr = self._band_arrays[key]
             crop = self._band_offsets[key]
@@ -2302,8 +2312,8 @@ class TileDecompressor:
             return False
         if t1_backend.resolve(self.backend) != "native":
             return False
-        if self.backend == "device" and _ht_tile(self.tcp):
-            return False  # HT blocks decode on the device
+        if self.backend == "device" and _card_t1(self.tcp):
+            return False  # blocks decode on the device
         if any(t.roi_shift for t in self.tcp.tccps):
             return False
         recs, data, g_zb, g_isht, ncb_total, t1_statics = seq

@@ -16,8 +16,10 @@ import pytest
 import torch
 
 import torch_ht_cases as cases
+import torch_mq_cases as mq_cases
 from grok_tpu_torch.kernels import LAUNCHES, reset_launches
-from grok_tpu_torch.ops import dwt, ht_decode, ht_encode, mct, pipeline
+from grok_tpu_torch.ops import (dwt, ht_decode, ht_encode, mct, mq_decode,
+                                mq_encode, pipeline)
 from grok_tpu_torch.t1 import ht_tables
 
 pytestmark = pytest.mark.cuda
@@ -279,3 +281,99 @@ def test_ht_encode_kernel_raises_on_small_pool(gen):
     args = ht_encode.encode_args(bl, dev, pool_cap=need)
     ht_encode.launch_encode(args, dev)
     assert ht_encode.finish_encode(args) == ht_encode.encode_cblks_ht(bl)
+
+
+def _mq_same(a, b):
+    """Two MQEncoded results agree exactly."""
+    assert a.data == b.data
+    for f in ("numbps", "rates", "terms", "dists", "e0"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("style", mq_cases.STYLES)
+@pytest.mark.parametrize("case", mq_cases.ENC_CASES)
+def test_mq_encode_kernel_matches_twin(gen, case, style):
+    """grok_tpu's MQ encoder shapes (all-zero blocks included), one
+    launch, codewords, rates, terminations and sums equal to the twin's."""
+    rng = np.random.default_rng(7)
+    batch = mq_cases.enc_blocks(rng, *case)
+    orients = rng.integers(0, 4, len(batch)).tolist()
+    lazy = style == mq_cases.CblkStyle.LAZY
+    reset_launches()
+    got = mq_encode.encode_cblks_mq(list(torch.from_numpy(batch).cuda()),
+                                    orients, lazy)
+    assert LAUNCHES["mq_encode"] == 1
+    _mq_same(got, mq_encode.encode_cblks_mq_plain(
+        list(torch.from_numpy(batch)), orients, lazy))
+
+
+def test_mq_encode_kernel_mixed_views_and_dist(gen):
+    """Mixed shapes, styles and need_dist flags in one launch, read as
+    views of a band tensor on the card; distortions exact."""
+    rng = np.random.default_rng(8)
+    blocks = mq_cases.mixed_blocks(rng) + mq_cases.dist_blocks(rng)
+    n = len(blocks)
+    orients = rng.integers(0, 4, n).tolist()
+    lazy = rng.integers(0, 2, n).tolist()
+    dist = [int(np.abs(b).max(initial=0) < (1 << 20)) for b in blocks]
+    band = torch.zeros((80, 80 * n), dtype=torch.int32, device="cuda")
+    views = []
+    for k, b in enumerate(blocks):
+        v = band[3:3 + b.shape[0], 80 * k:80 * k + b.shape[1]]
+        v.copy_(torch.from_numpy(b))
+        views.append(v)
+    got = mq_encode.encode_cblks_mq(views, orients, lazy, dist)
+    _mq_same(got, mq_encode.encode_cblks_mq_plain(
+        [torch.from_numpy(b) for b in blocks], orients, lazy, dist))
+
+
+def test_mq_decode_kernel_matches_twin(gen):
+    """Valid, pass-capped, corrupt and truncated streams, mixed shapes,
+    one launch, written into views of a band tensor."""
+    rng = np.random.default_rng(9)
+    blocks = mq_cases.mixed_blocks(rng)
+    styles = [mq_cases.STYLES[k % 2] for k in range(len(blocks))]
+    items = mq_cases.dec_items(rng, blocks, styles)
+    items = items + mq_cases.corrupt_items(rng, items)
+    band = torch.full((70, 70 * len(items)), 7, dtype=torch.int32,
+                      device="cuda")
+    outs = [band[2:2 + it[4], 70 * k:70 * k + it[5]]
+            for k, it in enumerate(items)]
+    reset_launches()
+    mq_decode.decode_cblks_mq(items, "cuda", outs)
+    assert LAUNCHES["mq_decode"] == 1
+    ref = mq_decode.decode_cblks_mq_plain(items)
+    for o, r in zip(outs, ref):
+        assert torch.equal(o.cpu(), r)
+
+
+def test_mq_round_trip_on_card(gen):
+    """The kernels' codewords decode back to the blocks (doubled
+    domain)."""
+    rng = np.random.default_rng(10)
+    blocks = mq_cases.mixed_blocks(rng, 40)
+    enc = mq_encode.encode_cblks_mq(
+        [torch.from_numpy(b).cuda() for b in blocks], 0, True)
+    items = []
+    for k, b in enumerate(blocks):
+        npass = enc.num_passes(k)
+        seg, last = [], 0
+        for i in range(npass):
+            if enc.terms[k, i] or i == npass - 1:
+                seg.append(int(enc.rates[k, i]) - last)
+                last = int(enc.rates[k, i])
+        items.append((enc.data[k], seg, npass, int(enc.numbps[k]),
+                      b.shape[0], b.shape[1], 0, mq_cases.CblkStyle.LAZY))
+    outs = mq_decode.decode_cblks_mq(items, "cuda")
+    for o, b in zip(outs, blocks):
+        exp = np.where(b != 0, np.sign(b) * (2 * np.abs(b) + 1), 0)
+        assert np.array_equal(o.cpu().numpy(), exp)
+
+
+def test_mq_encode_kernel_refuses_out_of_range(gen):
+    b = torch.full((4, 4), 1 << 26, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="range"):
+        mq_encode.encode_cblks_mq([b], 0, False)
+    b = torch.full((4, 4), 1 << 20, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="range"):
+        mq_encode.encode_cblks_mq([b], 0, False, True)

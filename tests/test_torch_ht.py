@@ -219,7 +219,8 @@ def test_codec_matches_reference(rng, name, make, kw, prec):
     """backend="device" on device="cpu": the codestream equals grok_tpu's
     device and native routes byte for byte, and decodes exactly through
     the port's device route; the HT blocks code on the device route, the
-    ragged ones and the MQ ones on the native coder (counted)."""
+    ragged ones on the native coder (counted), and ht_mixed's MQ blocks on
+    the device route's MQ coders."""
     arr = make(rng)
     ref_img = grok_tpu.GrkImage.from_array(arr)
     if prec:
@@ -244,8 +245,10 @@ def test_codec_matches_reference(rng, name, make, kw, prec):
     assert counts["encode_device"] > 0
     assert counts["decode_device"] == counts["encode_device"]
     assert counts["decode_host"] == counts["encode_host"]
-    if name in ("odd_edge_blocks", "ht_mixed"):
+    if name == "odd_edge_blocks":
         assert counts["encode_host"] > 0
+    if name == "ht_mixed":
+        assert counts["mq_encode_device"] > 0
     assert (counts["e0_host"] > 0) == (name == "deep_e0")
 
 

@@ -296,7 +296,7 @@ def test_cpu_runs_launch_nothing(rng):
     assert set(LAUNCHES) == {"fwd53_level", "inv53_level",
                              "rct_forward_shift", "rct_inverse_unshift",
                              "ht_encode", "ht_destuff", "ht_decode",
-                             "ht_magsgn"}
+                             "ht_magsgn", "mq_encode", "mq_decode"}
     assert all(v == 0 for v in LAUNCHES.values())
 
 

@@ -1,0 +1,310 @@
+"""The port's MQ Tier-1 against grok_tpu's, on the CPU, tolerance 0.
+
+The twins of the two MQ kernels (ops/mq_encode.py, ops/mq_decode.py), their
+tables, the device routers of t1/backend.py and the codec under
+backend="device" on device="cpu", all fed the same numpy-seeded inputs as
+grok_tpu: byte-identical codewords, rates, terminations and distortions,
+byte-identical codestreams, bit-exact decodes.  Corrupt and truncated
+streams decode as grok_tpu's device MQ decoder decodes them (what its
+Python and native decoders do there is tests/mq_reference_probe.py's
+question); the port's host route decodes them as grok_tpu's host coders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import grok_tpu
+import torch_mq_cases as cases
+from grok_tpu.ops import mq_decode as ref_dec
+from grok_tpu.ops import mq_encode as ref_enc
+from grok_tpu.params import CblkStyle as RefStyle
+from grok_tpu.t1 import backend as ref_backend
+from grok_tpu.t1 import coder as ref_coder
+from grok_tpu.t1 import native as ref_native
+
+import grok_tpu_torch
+from grok_tpu_torch import params as port_params
+from grok_tpu_torch.kernels import LAUNCHES, reset_launches
+from grok_tpu_torch.ops import mq_decode, mq_encode, mq_tables
+from grok_tpu_torch.params import CblkStyle
+from grok_tpu_torch.t1 import backend as t1_backend
+from grok_tpu_torch.t1 import native as port_native
+
+
+def _t(blocks):
+    return [torch.from_numpy(np.ascontiguousarray(b)) for b in blocks]
+
+
+def _ref_items(items):
+    return [(d, list(s), n, nb, h, w, o, RefStyle(int(st)))
+            for d, s, n, nb, h, w, o, st in items]
+
+
+def test_tables_match_reference():
+    for name in ("ZC_LUT", "SC_CN", "SC_XOR", "QE", "NMPS", "NLPS"):
+        assert np.array_equal(getattr(mq_tables, name),
+                              getattr(ref_enc, "_" + name)), name
+    assert np.array_equal(mq_tables.INIT_CTX, ref_enc._INIT_CTX)
+    assert mq_tables.NUMBPS_BUCKETS == ref_enc.NUMBPS_BUCKETS
+    assert mq_tables.MAX_NUMBPS_DEVICE == ref_enc.MAX_NUMBPS_DEVICE
+    assert mq_tables.MAX_NUMBPS_DIST == ref_enc.MAX_NUMBPS_DIST
+    assert (mq_tables.CTX_ZC, mq_tables.CTX_SC, mq_tables.CTX_MAG,
+            mq_tables.CTX_RL, mq_tables.CTX_UNI) == (
+        ref_enc._CTX_ZC, ref_enc._CTX_SC, ref_enc._CTX_MAG, ref_enc._CTX_RL,
+        ref_enc._CTX_UNI)
+
+
+def _check_passes(got, k, passes):
+    n = got.num_passes(k)
+    assert n == len(passes)
+    assert got.rates[k, :n].tolist() == [p.rate for p in passes]
+    assert got.terms[k, :n].tolist() == [int(p.term) for p in passes]
+
+
+@pytest.mark.parametrize("style", cases.STYLES)
+@pytest.mark.parametrize("case", cases.ENC_CASES)
+def test_encode_twin_matches_reference(rng, case, style):
+    """grok_tpu's test_device_mq_encoder_bit_exact shapes: the twin equals
+    grok_tpu's device encoder and its host coder (codeword, numbps, every
+    pass's type, plane, termination and rate)."""
+    batch = cases.enc_blocks(rng, *case)
+    orients = rng.integers(0, 4, len(batch)).astype(np.int32)
+    lazy = style == CblkStyle.LAZY
+    got = mq_encode.encode_cblks_mq_plain(_t(batch), orients.tolist(), lazy)
+    dev = ref_enc.encode_cblks_mq_device(batch, orients, lazy)
+    for k, b in enumerate(batch):
+        data, nb, passes = ref_coder.encode_cblk(b, int(orients[k]),
+                                                 RefStyle(int(style)))
+        assert got.data[k] == data == dev[k][0]
+        assert got.numbps[k] == nb == dev[k][1]
+        _check_passes(got, k, passes)
+        _check_passes(got, k, dev[k][2])
+        lp = t1_backend.LazyPasses(got.rates[k, :len(passes)],
+                                   got.dists[k, :len(passes)],
+                                   got.terms[k, :len(passes)], nb)
+        assert [(p.passtype, p.bpno, p.term) for p in lp] == \
+            [(p.passtype, p.bpno, p.term) for p in passes]
+
+
+@pytest.mark.parametrize("style", cases.STYLES)
+def test_encode_twin_distortions_match_reference(rng, style):
+    """need_dist: every pass's cumulative distortion and e0 equal grok_tpu's
+    device encoder's and its native coder's, bit for bit."""
+    blocks = cases.dist_blocks(rng)
+    lazy = style == CblkStyle.LAZY
+    got = mq_encode.encode_cblks_mq_plain(_t(blocks), 0, lazy, True)
+    dev = ref_enc.encode_cblks_mq_device(np.stack(blocks),
+                                         np.zeros(5, np.int32), lazy,
+                                         need_dist=True)
+    jobs = [ref_backend.EncodeJob(b, 0, RefStyle(int(style)),
+                                  need_dist=True) for b in blocks]
+    ref_native.encode_batch_native(jobs)
+    for k, ((data, nb, passes, e0), j) in enumerate(zip(dev, jobs)):
+        n = len(passes)
+        assert got.data[k] == data == j.data
+        assert got.rates[k, :n].tolist() == [p.rate for p in j.passes]
+        assert got.dists[k, :n].tolist() == [p.dist for p in passes] == \
+            [p.dist for p in j.passes]
+        assert got.e0[k] == e0 == j.e0_out
+
+
+def test_encode_twin_mixed_batch_matches_host_coder(rng):
+    """Mixed shapes, styles and orients in one call, all-zero blocks and
+    magnitudes up to 2^17: equal to grok_tpu's host coder, distortions
+    included."""
+    blocks = cases.mixed_blocks(rng)
+    n = len(blocks)
+    orients = rng.integers(0, 4, n).tolist()
+    lazy = rng.integers(0, 2, n).tolist()
+    got = mq_encode.encode_cblks_mq_plain(_t(blocks), orients, lazy, True)
+    for k, b in enumerate(blocks):
+        data, nb, passes = ref_coder.encode_cblk(
+            b, orients[k], RefStyle.LAZY if lazy[k] else RefStyle.NONE)
+        assert got.data[k] == data and got.numbps[k] == nb
+        _check_passes(got, k, passes)
+        assert got.dists[k, :len(passes)].tolist() == \
+            [p.dist for p in passes]
+        assert got.e0[k] == float((b.astype(np.int64) ** 2).sum())
+
+
+def test_encode_refuses_out_of_range():
+    with pytest.raises(ValueError, match="range"):
+        mq_encode.encode_cblks_mq([torch.full((4, 4), 1 << 26,
+                                              dtype=torch.int32)], 0, False)
+    with pytest.raises(ValueError, match="range"):
+        mq_encode.encode_cblks_mq([torch.full((4, 4), 1 << 20,
+                                              dtype=torch.int32)], 0, False,
+                                  True)
+    with pytest.raises(ValueError, match="no kernel route"):
+        mq_encode.encode_cblks_mq([torch.zeros((4, 4), dtype=torch.int32,
+                                               device="meta")], 0, False)
+    with pytest.raises(ValueError, match="no kernel route"):
+        mq_decode.decode_cblks_mq([(b"", [], 0, 0, 4, 4, 0, CblkStyle.NONE)],
+                                  "meta")
+    with pytest.raises(ValueError, match="styles NONE and LAZY"):
+        mq_decode.decode_cblks_mq([(b"", [], 1, 1, 4, 4, 0,
+                                    CblkStyle.TERMALL)], "cpu")
+
+
+@pytest.mark.parametrize("style", cases.STYLES)
+def test_decode_twin_matches_reference(rng, style):
+    """grok_tpu's test_device_mq_decoder_bit_exact: 16x16 blocks, one
+    pass-capped, one all zero; equal to grok_tpu's device decoder and its
+    host decoder; written into views of a band tensor, counting no
+    launch."""
+    batch = rng.integers(-900, 901, size=(9, 16, 16)).astype(np.int32)
+    batch[rng.random(batch.shape) > 0.5] = 0
+    batch[2] = 0
+    items = cases.dec_items(rng, list(batch), [style] * len(batch))
+    band = torch.full((20, 20 * len(items)), 5, dtype=torch.int32)
+    outs = [band[2:18, 20 * k:20 * k + 16] for k in range(len(items))]
+    reset_launches()
+    mq_decode.decode_cblks_mq(items, "cpu", outs)
+    assert not any(LAUNCHES.values())
+    dev = ref_dec.decode_cblks_mq_device(_ref_items(items))
+    for o, d, it in zip(outs, dev, _ref_items(items)):
+        assert np.array_equal(o.numpy(), np.asarray(d))
+        assert np.array_equal(o.numpy(), ref_coder.decode_cblk(*it))
+
+
+def test_decode_twin_mixed_shapes_match_host_decoder(rng):
+    """Mixed shapes and styles in one call, pass-capped decodes: equal to
+    grok_tpu's host decoder."""
+    blocks = cases.mixed_blocks(rng)
+    styles = [cases.STYLES[k % 2] for k in range(len(blocks))]
+    items = cases.dec_items(rng, blocks, styles)
+    for o, it in zip(mq_decode.decode_cblks_mq_plain(items),
+                     _ref_items(items)):
+        assert np.array_equal(o.numpy(), ref_coder.decode_cblk(*it))
+
+
+def _grouped_reference(items):
+    """grok_tpu's device decode of items, one call a shape group (as its
+    router batches them)."""
+    groups: dict = {}
+    for k, it in enumerate(items):
+        groups.setdefault((it[4], it[5]), []).append(k)
+    out = [None] * len(items)
+    for idx in groups.values():
+        res = ref_dec.decode_cblks_mq_device(_ref_items([items[k]
+                                                          for k in idx]))
+        for k, o in zip(idx, res):
+            out[k] = np.asarray(o)
+    return out
+
+
+def test_decode_twin_corrupt_streams_match_reference_device(rng):
+    """Random bytes, truncations, segment lengths past the bytes and
+    missing segments decode as grok_tpu's device decoder decodes them."""
+    blocks = [b for b in cases.mixed_blocks(rng, 16)
+              if b.shape in ((16, 16), (32, 32))]
+    styles = [cases.STYLES[k % 2] for k in range(len(blocks))]
+    items = cases.dec_items(rng, blocks, styles)
+    bad = [it for it in cases.corrupt_items(rng, items, n=16)
+           if (it[4], it[5]) in ((16, 16), (32, 32))]
+    got = mq_decode.decode_cblks_mq_plain(bad)
+    for o, r in zip(got, _grouped_reference(bad)):
+        assert np.array_equal(o.numpy(), r)
+
+
+def test_host_route_decodes_corrupt_streams_as_host_coders(rng):
+    """backend="native" (the port's native coder) decodes the same corrupt
+    streams as grok_tpu's native and Python decoders."""
+    items = [it for it in cases.corrupt_items(rng, [], n=12)]
+    jobs = [t1_backend.DecodeJob(*it) for it in items]
+    port_native.decode_batch_native(jobs)
+    ref_jobs = [ref_backend.DecodeJob(*it) for it in _ref_items(items)]
+    ref_native.decode_batch_native(ref_jobs)
+    for j, r in zip(jobs, ref_jobs):
+        assert np.array_equal(j.out, r.out)
+
+
+def test_padded_lengths_follow_the_reference():
+    """The reference's padded batch length: the next power of two of the
+    longest block of a shape, at least 1."""
+    items = [(b"x" * n, [n], 1, 1, h, 16, 0, CblkStyle.NONE)
+             for n, h in ((0, 16), (3, 16), (5, 8), (0, 4))]
+    assert mq_decode.padded_lengths(items).tolist() == [4, 4, 8, 1]
+
+
+# ---------------------------------------------------------------- routers
+
+def test_mq_device_eligible_follows_reference():
+    for style in (CblkStyle.NONE, CblkStyle.LAZY, CblkStyle.TERMALL,
+                  CblkStyle.LAZY | CblkStyle.RESET, CblkStyle.VSC):
+        for nb in (0, 20, 21, 26, 27):
+            for dist in (False, True):
+                ok = style in (CblkStyle.NONE, CblkStyle.LAZY) and nb <= (
+                    20 if dist else 26)
+                assert t1_backend.mq_device_eligible(style, nb, dist) == ok
+
+
+class _Routed:
+    """Counts the codeblocks grok_tpu's device MQ routers take."""
+
+    def __init__(self, monkeypatch):
+        self.enc = self.dec = 0
+        enc, dec = ref_backend._encode_mq_device, \
+            ref_dec.decode_cblks_mq_device
+
+        def route(jobs):
+            rest = enc(jobs)
+            self.enc += len(jobs) - len(rest)
+            return rest
+
+        def count(items):
+            self.dec += len(items)
+            return dec(items)
+
+        monkeypatch.setattr(ref_backend, "_encode_mq_device", route)
+        monkeypatch.setattr(ref_dec, "decode_cblks_mq_device", count)
+
+
+CODEC_CASES = [
+    # grok_tpu's test_device_mq_codec_stream_identical, both styles
+    ("lazy_96", lambda r: r.integers(0, 256, (96, 96)).astype(np.uint8),
+     dict()),
+    ("none_96", lambda r: r.integers(0, 256, (96, 96)).astype(np.uint8),
+     dict(cblk_style=CblkStyle.NONE)),
+    # grok_tpu's test_device_backend_rate_targeted_stream_identical: the
+    # need_dist path
+    ("layers_128", lambda r: r.integers(0, 256, (128, 128)).astype(np.int32),
+     dict(numresolution=3, layer_rates=[10, 1])),
+    ("rgb_tiles", lambda r: r.integers(0, 256, (64, 96, 3)).astype(np.uint8),
+     dict(numresolution=3, tile_size=(32, 32))),
+]
+
+
+@pytest.mark.parametrize("name,make,kw", CODEC_CASES,
+                         ids=[c[0] for c in CODEC_CASES])
+def test_codec_matches_reference(rng, monkeypatch, name, make, kw):
+    """backend="device" on device="cpu": byte-identical to grok_tpu's
+    native and device routes, decodes exactly, and codes on the device
+    route exactly the MQ blocks grok_tpu's device routers take (the
+    per-shape decode gate of 8 included)."""
+    arr = make(rng)
+    img = grok_tpu.GrkImage.from_array(arr)
+    ref_kw = dict(kw)
+    if "cblk_style" in kw:
+        ref_kw["cblk_style"] = RefStyle(int(kw["cblk_style"]))
+    ref_nat = grok_tpu.compress(img, grok_tpu.CompressParams(
+        backend="native", **ref_kw))
+    routed = _Routed(monkeypatch)
+    ref_dev = grok_tpu.compress(img, grok_tpu.CompressParams(
+        backend="device", **ref_kw))
+    grok_tpu.decompress(ref_dev, grok_tpu.DecompressParams(backend="device"))
+    counts = t1_backend.DEVICE_CODEBLOCKS
+    for k in counts:
+        counts[k] = 0
+    data = grok_tpu_torch.compress(port_params.from_reference(img),
+                                   grok_tpu_torch.CompressParams(**kw),
+                                   device="cpu")
+    assert data == ref_nat == ref_dev
+    out = grok_tpu_torch.decompress(data, device="cpu")
+    assert np.array_equal(out.to_array(), arr.astype(np.int32))
+    assert counts["mq_encode_device"] == routed.enc > 0
+    assert counts["mq_decode_device"] == routed.dec
+    assert counts["mq_decode_host"] + counts["mq_decode_device"] == \
+        counts["mq_encode_device"] + counts["mq_encode_host"]
+    assert counts["encode_device"] == counts["decode_device"] == 0
