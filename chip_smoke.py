@@ -2,6 +2,8 @@
 """Smoke run of grok_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mq-times PATH   # only the MQ kernels' times,
+                                            # from the checkout at PATH
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 a source, in parallel) and the native host coder from native/, holds each
@@ -9,8 +11,10 @@ kernel bit-exact against its plain PyTorch twin at the shapes the lossless
 5/3 path gives it (the HT Tier-1 kernels byte for byte, on corrupt streams
 and under the three CxtVLC table swaps too; the MQ Tier-1 kernels on
 grok_tpu's test shapes, distortion-tracked blocks, corrupt and truncated
-streams and case (a)'s 70 codeblocks), times kernel and twin (the four HT
-kernels on case (b)'s codeblocks, the two MQ kernels on case (c)'s), then
+streams, the widest legal shapes and case (a)'s 70 codeblocks), times
+kernel and twin (the four HT kernels on case (b)'s codeblocks, the two MQ
+kernels on three launch shapes: case (c)'s 3,360 codeblocks, its tile 0
+and case (a)'s blocks, each with a round-trip check), then
 drives grok_tpu_torch.compress / decompress with their defaults (the card)
 on three cases:
 
@@ -26,7 +30,7 @@ launch of each level kernel a DWT level, one of each RCT kernel, one of
 each HT kernel; cases (a) and (c): one MQ encode and one MQ decode launch
 a tile) and send no tile down the host path; each case says how many
 codeblocks each direction coded on the card and on the native coder, and
-cases (b) and (c) where their Tier-1 time goes.  Case (c)'s plain route
+cases (a), (b) and (c) where their Tier-1 time goes.  Case (c)'s plain route
 (the MQ twins on the CPU, slow at 16 tiles) is compared on its first
 512x512 tile coded as an image of its own; a multi-layer variant of (c)
 (layer_rates [40, 10, 1], the distortion-tracking path) is held to the
@@ -45,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -89,6 +94,14 @@ def make_rgb(h, w, seed):
     smoothness with sensor-like noise, 8 bits a sample."""
     return np.stack([make_image(h, w, seed + c)[:, ::(-1) ** c]
                      for c in range(3)], axis=-1)
+
+
+def tiles_c():
+    """Case (c)'s image as 16 batched 512x512 tiles, (3, 16, 512, 512)
+    int32, as the batched drivers hand them to the pipeline."""
+    rgb = make_rgb(2048, 2048, SEED)
+    return np.moveaxis(rgb.astype(np.int32), -1, 0).reshape(
+        3, 4, 512, 4, 512).transpose(0, 1, 3, 2, 4).reshape(3, 16, 512, 512)
 
 
 def randint(gen, shape, lo, hi):
@@ -474,8 +487,10 @@ def band_blocks(bands, size=64):
 def check_mq(mq_encode, mq_decode, cases, blocks_a, orients_a):
     """The MQ kernels against their twins on tests/torch_mq_cases.py's
     inputs (grok_tpu's test shapes and styles, all-zero blocks, magnitudes
-    up to 2^20; distortion-tracked blocks; mixed shapes, styles and
-    flags in one launch; pass-capped, corrupt and truncated streams) and
+    up to 2^20; distortion-tracked blocks; the widest legal shapes, 4x1024,
+    1024x4, 8x512 and 512x8, with 64x64 blocks in one launch, each style
+    with and without distortions; mixed shapes, styles and flags in one
+    launch; pass-capped, corrupt and truncated streams) and
     on case (a)'s 70 codeblocks; numbps above the limits refused."""
     rng = np.random.default_rng(SEED)
     err = {"mq_encode": 0, "mq_decode": 0}
@@ -490,6 +505,11 @@ def check_mq(mq_encode, mq_decode, cases, blocks_a, orients_a):
     for lazy in (0, 1):
         check_mq_pair(mq_encode, mq_decode, cuda(cases.dist_blocks(rng)), 0,
                       lazy, 1, [], err)
+        for dist in (0, 1):
+            ext = cases.extreme_blocks(rng)
+            check_mq_pair(mq_encode, mq_decode, cuda(ext),
+                          rng.integers(0, 4, len(ext)).tolist(), lazy, dist,
+                          [], err)
     mixed = cases.mixed_blocks(rng)
     n = len(mixed)
     check_mq_pair(mq_encode, mq_decode, cuda(mixed),
@@ -513,62 +533,154 @@ def check_mq(mq_encode, mq_decode, cases, blocks_a, orients_a):
     return err
 
 
-def time_mq(blocks, orients, sub, mq_encode, mq_decode, err):
-    """The MQ kernels on case (c)'s codeblock population (style LAZY, as
-    the codec codes it): each per launch and amortised, the wrapper with
-    its copies and host work; the twin on the card on the first `sub`
-    blocks (one tile: its time is set by the longest chain of decisions,
-    not by the count of blocks), held to the kernel's results there.
-    Bounds from the bytes (encode: 4 B a coefficient in, the codewords
-    out; decode: the codewords in, 4 B a sample out; scratch not counted).
-    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+def mq_card_items(items):
+    """The indices of the decode items the decode router sends to the
+    card: shape groups of MQ_DECODE_MIN_GROUP or more."""
+    from grok_tpu_torch.t1.backend import MQ_DECODE_MIN_GROUP
+
+    count = Counter((it[4], it[5]) for it in items)
+    return [k for k, it in enumerate(items)
+            if count[(it[4], it[5])] >= MQ_DECODE_MIN_GROUP]
+
+
+def time_mq_shape(label, blocks, orients, mq_encode, mq_decode):
+    """Both MQ kernels on one launch shape (style LAZY, as the codec codes
+    it; decode: the blocks the decode router sends to the card), each per
+    launch and amortised, with the longest chain of decisions (counted by
+    the encode kernel) and the time a decision of it; bounds from the bytes
+    (encode: 4 B a coefficient in, the codewords out; decode: the codewords
+    in, 4 B a sample out); the decode must give the blocks back in the
+    doubled domain.  Returns ({name: (amortised ms, bound ms)}, the encode
+    result, the decode items, the decode outputs)."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    samples = sum(b.numel() for b in blocks)
-    args = mq_encode.encode_args(blocks, orients, [1] * len(blocks),
-                                 [0] * len(blocks), [26] * len(blocks), dev)
+    n = len(blocks)
+    args = mq_encode.encode_args(blocks, orients, [1] * n, [0] * n,
+                                 [26] * n, dev)
     k_enc = time_ms(lambda: mq_encode.launch_encode(args, dev))
+    enc = mq_encode.finish_encode(args)
     chains = args[4][:, 5].cpu().numpy()
-    w_enc = time_once(lambda: mq_encode.encode_cblks_mq(blocks, orients, 1))
-    enc = mq_encode.encode_cblks_mq(blocks, orients, 1)
-    code_bytes = sum(len(d) for d in enc.data)
-    p_enc = time_once(lambda: mq_encode.encode_cblks_mq_plain(
-        blocks[:sub], orients[:sub], 1))
-    part = mq_encode.encode_cblks_mq_plain(blocks[:sub], orients[:sub], 1)
-    head = type(enc)(enc.data[:sub], enc.numbps[:sub], enc.rates[:sub],
-                     enc.terms[:sub], enc.dists[:sub], enc.e0[:sub])
-    err["mq_encode"] = max(err["mq_encode"], mq_err(head, part))
     items = mq_items(enc, [tuple(b.shape) for b in blocks], orients,
-                     [1] * len(blocks))
-    outs = [torch.empty(b.shape, dtype=torch.int32, device=dev)
-            for b in blocks]
+                     [1] * n)
+    keep = mq_card_items(items)
+    items = [items[k] for k in keep]
+    outs = [torch.empty((it[4], it[5]), dtype=torch.int32, device=dev)
+            for it in items]
     dargs = mq_decode.decode_args(items, dev, outs)
     k_dec = time_ms(lambda: mq_decode.launch_decode(dargs, dev))
-    w_dec = time_once(lambda: mq_decode.decode_cblks_mq(items, dev))
-    p_dec = time_once(lambda: mq_decode.decode_cblks_mq_plain(items[:sub],
-                                                              dev))
-    want = mq_decode.decode_cblks_mq_plain(items[:sub], dev)
-    err["mq_decode"] = max([err["mq_decode"]] + [
-        max_err(o, w) for o, w in zip(outs[:sub], want)])
+    # every pass decoded: the blocks come back in the doubled domain
+    for k, o in zip(keep, outs):
+        b = blocks[k].to(torch.int64)
+        if not torch.equal(o.to(torch.int64), torch.where(
+                b != 0, b.sign() * (2 * b.abs() + 1), 0)):
+            raise AssertionError(f"MQ round trip differs, {label}, block "
+                                 f"{k}")
     times = {}
-    longest = int(chains.max())
-    for name, (k_single, k_amort), wrapper, plain, nbytes in (
-            ("mq_encode", k_enc, w_enc, p_enc, 4 * samples + code_bytes),
-            ("mq_decode", k_dec, w_dec, p_dec, code_bytes + 4 * samples)):
+    for name, (k_single, k_amort), sel in (("mq_encode", k_enc,
+                                            list(range(n))),
+                                           ("mq_decode", k_dec, keep)):
+        samples = sum(blocks[k].numel() for k in sel)
+        code_bytes = sum(len(enc.data[k]) for k in sel)
+        longest = int(chains[sel].max())
+        nbytes = 4 * samples + code_bytes
         bound = 1e3 * nbytes / PEAK_BYTES_S
-        log(f"time {name:24s} {len(blocks)} codeblocks, {samples} samples, "
-            f"{code_bytes} codeword B, bound on {nbytes} B: kernel "
-            f"{k_single:.4f} ms per launch, {k_amort:.4f} ms amortised; "
-            f"longest chain {longest} decisions ({int(chains.mean())} on "
-            f"average), {1e6 * k_amort / longest:.1f} ns a decision of it; "
-            f"wrapper (copies, descriptors, slicing) {wrapper:.1f} ms; twin "
-            f"on the card ({sub} blocks) {plain:.1f} ms; bound "
-            f"{bound:.4f} ms (bytes); no single PyTorch call")
-        times[name] = (k_amort, plain, bound, "bytes")
-    return times
+        log(f"time {name} {label}: {len(sel)} codeblocks, {samples} "
+            f"samples, {code_bytes} codeword B; kernel {k_single:.4f} ms "
+            f"per launch, {k_amort:.4f} ms amortised; longest chain "
+            f"{longest} decisions ({int(chains[sel].mean())} on average), "
+            f"{1e6 * k_single / longest:.1f} ns a decision of it per "
+            f"launch, {1e6 * k_amort / longest:.1f} amortised; bound "
+            f"{bound:.4f} ms on {nbytes} B (bytes)")
+        times[name] = (k_amort, bound)
+    return times, enc, items, outs
 
 
-def mq_breakdown(arr, kw, data):
-    """Case (c)'s MQ Tier-1 split over one encode and one decode: card MQ
+def mq_launch_shapes(bands_c, bands_a):
+    """The three launch shapes of the MQ kernels: case (c)'s 3,360
+    codeblocks in one launch, its tile 0 (210 blocks, the launch the codec
+    makes), and case (a)'s 70 blocks (the main path's one launch)."""
+    blocks_c, orients_c = band_blocks(bands_c)
+    blocks_a, orients_a = band_blocks(bands_a)
+    return (("case (c) population", blocks_c, orients_c),
+            ("case (c) tile 0", blocks_c[:210], orients_c[:210]),
+            ("case (a)", blocks_a, orients_a))
+
+
+def time_mq(shapes, mq_encode, mq_decode, err):
+    """The MQ kernels on the three launch shapes, the wrappers with their
+    copies and host work on the population, and the twins on the card on
+    tile 0 (their time is set by the longest chain of decisions, not by the
+    count of blocks), held to the kernels' results there.  Returns {name:
+    (ms, plain_ms, bound_ms, bound_by)} on the population."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    results = [time_mq_shape(label, b, o, mq_encode, mq_decode)
+               for label, b, o in shapes]
+    (_, blocks, orients), (_, tile, tile_or) = shapes[:2]
+    w_enc = time_once(lambda: mq_encode.encode_cblks_mq(blocks, orients, 1))
+    items = mq_items(mq_encode.encode_cblks_mq(blocks, orients, 1),
+                     [tuple(b.shape) for b in blocks], orients,
+                     [1] * len(blocks))
+    w_dec = time_once(lambda: mq_decode.decode_cblks_mq(items, dev))
+    _, enc, items, outs = results[1]
+    p_enc = time_once(lambda: mq_encode.encode_cblks_mq_plain(tile, tile_or,
+                                                              1))
+    err["mq_encode"] = max(err["mq_encode"], mq_err(
+        enc, mq_encode.encode_cblks_mq_plain(tile, tile_or, 1)))
+    p_dec = time_once(lambda: mq_decode.decode_cblks_mq_plain(items, dev))
+    want = mq_decode.decode_cblks_mq_plain(items, dev)
+    err["mq_decode"] = max([err["mq_decode"]] + [
+        max_err(o, w) for o, w in zip(outs, want)])
+    log(f"time mq wrappers and twins: encode_cblks_mq (copies, descriptors, "
+        f"slicing) {w_enc:.1f} ms and decode_cblks_mq {w_dec:.1f} ms on "
+        f"the population; the twins on the card on tile 0: encode "
+        f"{p_enc:.1f} ms, decode {p_dec:.1f} ms; no single PyTorch call")
+    pop = results[0][0]
+    return {name: (pop[name][0], plain, pop[name][1], "bytes")
+            for name, plain in (("mq_encode", p_enc), ("mq_decode", p_dec))}
+
+
+def ptxas_lines(report: str, kernels) -> dict:
+    """ptxas's stack, spill, register and shared memory lines of each
+    kernel whose mangled name holds one of `kernels`."""
+    out: dict = {}
+    cur = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((k for k in kernels if k in line), None)
+        elif cur and ("stack frame" in line or "registers" in line):
+            out.setdefault(cur, []).append(
+                line.replace("ptxas info    :", "").strip())
+    return out
+
+
+def mq_times_only(tree: str) -> int:
+    """`chip_smoke.py --mq-times TREE`: only the MQ kernels' times on the
+    three launch shapes, from the grok_tpu_torch of the checkout at TREE
+    (for A/B runs against another tree unpacked beside this one)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import grok_tpu_torch
+    from grok_tpu_torch.kernels import build
+    from grok_tpu_torch.ops import mq_decode, mq_encode, pipeline
+
+    log(f"tree {tree}: grok_tpu_torch from "
+        f"{os.path.dirname(os.path.abspath(grok_tpu_torch.__file__))}")
+    log(run(["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"]).splitlines()[0])
+    report = build.build()
+    build.load()
+    for name, lines in ptxas_lines(report, ("mq_encode_kernel",
+                                            "mq_decode_kernel")).items():
+        log(f"ptxas {name}: {'; '.join(lines)}")
+    bands = [pipeline.analysis(torch.from_numpy(np.ascontiguousarray(
+        x)).cuda(), numres=6, reversible=True, mct=m, prec=8, sgnd=False)
+        for x, m in ((tiles_c(), 1),
+                     (make_image().astype(np.int32)[None, None], 0))]
+    for label, blocks, orients in mq_launch_shapes(*bands):
+        time_mq_shape(label, blocks, orients, mq_encode, mq_decode)
+    return 0
+
+
+def mq_breakdown(name, arr, kw, data):
+    """A case's MQ Tier-1 split over one encode and one decode: card MQ
     (the kernels, the host work around them: descriptors and the upload,
     the copies back and the slicing) against the host route's whole-tile
     native Tier-1 (backend="native")."""
@@ -594,7 +706,7 @@ def mq_breakdown(arr, kw, data):
     with Timed(host=(td, "_run_t1_tile_native")) as hdec:
         grok_tpu_torch.decompress(data, DecompressParams(backend="native"))
     e, d = enc.ms, dec.ms
-    log(f"stages (c) MQ Tier-1 ms: encode card MQ {e['card']:.1f} "
+    log(f"stages ({name}) MQ Tier-1 ms: encode card MQ {e['card']:.1f} "
         f"(descriptors and upload {e['args']:.1f}, kernel {e['kernel']:.1f}, "
         f"copies back and slicing {e['finish']:.1f}, the rest of the router "
         f"{e['card'] - e['args'] - e['kernel'] - e['finish']:.1f}), host "
@@ -923,6 +1035,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mq-times"]:
+        return mq_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
     import grok_tpu_torch  # noqa: F401  (fails outside a checkout)
     from grok_tpu_torch.kernels import LAUNCHES, build
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -946,6 +1060,9 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s from "
         f"{[os.path.relpath(s) for s in build.sources()]}")
     log(report.strip())
+    for name, lines in ptxas_lines(report, ("mq_encode_kernel",
+                                            "mq_decode_kernel")).items():
+        log(f"ptxas {name}: {'; '.join(lines)}")
     t0 = time.perf_counter()
     from grok_tpu_torch.tile import processor  # builds the native coder
     processor.host_backend("device")  # raises if the native coder fails
@@ -970,12 +1087,11 @@ def main() -> int:
     times.update(time_ht(ht_population(uhd, pipeline), ht_encode, ht_decode,
                          err))
     rgb_c = make_rgb(2048, 2048, SEED)
-    tiles = np.moveaxis(rgb_c.astype(np.int32), -1, 0).reshape(
-        3, 4, 512, 4, 512).transpose(0, 1, 3, 2, 4).reshape(3, 16, 512, 512)
     bands_c = pipeline.analysis(torch.from_numpy(np.ascontiguousarray(
-        tiles)).cuda(), numres=6, reversible=True, mct=1, prec=8, sgnd=False)
-    times.update(time_mq(*band_blocks(bands_c), 210, mq_encode, mq_decode,
-                         err))
+        tiles_c())).cuda(), numres=6, reversible=True, mct=1, prec=8,
+        sgnd=False)
+    times.update(time_mq(mq_launch_shapes(bands_c, bands_a), mq_encode,
+                         mq_decode, err))
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their twins: {err}")
 
@@ -991,13 +1107,14 @@ def main() -> int:
     # case (a): one tile, one launch of each level kernel a level and one
     # MQ launch each way; 70 codeblocks coded on the card, 63 decoded there
     # (grok_tpu's router decodes shape groups of 8 or more on its device)
-    codec_case("a config-1 512x512 gray MQ", gray, dict(numresolution=6),
-               lift + mq, card_note,
-               exact=dict(LAUNCHES, fwd53_level=5, inv53_level=5,
-                          rct_forward_shift=0, rct_inverse_unshift=0,
-                          **dict.fromkeys(ht, 0), mq_encode=1, mq_decode=1),
-               mq=dict(mq_encode_device=70, mq_encode_host=0,
-                       mq_decode_device=63, mq_decode_host=7))
+    kw_a = dict(numresolution=6)
+    _, data_a = codec_case(
+        "a config-1 512x512 gray MQ", gray, kw_a, lift + mq, card_note,
+        exact=dict(LAUNCHES, fwd53_level=5, inv53_level=5,
+                   rct_forward_shift=0, rct_inverse_unshift=0,
+                   **dict.fromkeys(ht, 0), mq_encode=1, mq_decode=1),
+        mq=dict(mq_encode_device=70, mq_encode_host=0,
+                mq_decode_device=63, mq_decode_host=7))
     # the main path: one launch of each level kernel a level, five levels,
     # and one of each HT kernel for the tile's even codeblocks (decode: the
     # destuffing, chain and MagSgn launches)
@@ -1028,7 +1145,8 @@ def main() -> int:
                transforms + mq, card_note, plain=False, mq=mq_c)
     stage_breakdown(uhd)
     tier1_breakdown(uhd, kw_b, data_b)
-    mq_breakdown(rgb_c, kw_c, data_c)
+    mq_breakdown("a", gray, kw_a, data_a)
+    mq_breakdown("c", rgb_c, kw_c, data_c)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))
     if loaded:

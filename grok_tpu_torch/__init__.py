@@ -6,9 +6,13 @@ an NVIDIA Hopper card, through CUDA kernels written by hand for sm_90a
 (grok_tpu_torch/csrc) that replace grok_tpu's Pallas kernels.  It imports
 torch and never jax, and nothing of grok_tpu: parameters, images, markers,
 geometry, rate control and Tier-2 are the port's own copies of grok_tpu's
-host modules, and Tier-1 runs on the native C++ coder in `native/`, which
-the port compiles itself (t1/native.py), so both packages write the same
-codestreams.  By default the entry points run on the card.
+host modules.  Under `backend="device"` Tier-1 runs on the card too, through
+hand-written HT and MQ kernels, for every codeblock grok_tpu's device
+routers take; only the MQ blocks outside those routers' limits, the MQ
+decode shape groups under 8, the ragged HT blocks and Tier-2 stay on the
+native C++ coder in `native/`, which the port compiles itself
+(t1/native.py).  Both packages write the same codestreams.  By default the
+entry points run on the card.
 """
 
 __version__ = "0.1.0"

@@ -4,9 +4,11 @@ The same entry points as grok_tpu/codec.py, writing the same codestreams.
 They run on the card unless the caller asks otherwise: `backend="device"`
 (the default) runs on `device` ("cuda" by default, which raises where there
 is no CUDA device; "cpu" runs the kernels' plain PyTorch versions) the
-sample transforms and the HT cleanup pass of every even-sized HT codeblock,
-and on the native host coder the MQ and ragged HT codeblocks and Tier-2;
-`backend="native"` is the host route.  The strip, file and stream variants
+sample transforms and Tier-1 of every codeblock grok_tpu's device routers
+take (the HT cleanup pass of every even-sized HT codeblock, MQ codeblocks
+of styles NONE and LAZY), and on the native host coder only the MQ blocks
+outside those routers' limits, the MQ decode shape groups under 8, the
+ragged HT blocks, and Tier-2; `backend="native"` is the host route.  The strip, file and stream variants
 are not ported yet (ROADMAP A14).
 """
 

@@ -45,10 +45,10 @@ _SIGNATURES = {
     # desc, streams, scratch, rho, umax, longest, nblocks, stream
     "grk_ht_magsgn": (_P,) * 6 + (_I, _P),
     # desc, tables, slots, packed, used, meta, rates, terms, dists,
-    # scratch, nblocks, pool_cap, stream
-    "grk_mq_encode": (_P,) * 10 + (_I, _L, _P),
-    # desc, tables, segs, pmap, data, scratch, nblocks, stream
-    "grk_mq_decode": (_P,) * 6 + (_I, _P),
+    # nblocks, pool_cap, smem_bytes, stream
+    "grk_mq_encode": (_P,) * 9 + (_I, _L, _I, _P),
+    # desc, tables, segs, pmap, data, nblocks, smem_bytes, stream
+    "grk_mq_decode": (_P,) * 5 + (_I, _I, _P),
 }
 
 

@@ -13,8 +13,10 @@ reference does: each codeword segment's byte range and, through
 t1/coder.py `segment_layout`, the segment and bypass flag of every pass
 (`layout`).  It joins the blocks' bytes and uploads them with those tables
 in one copy.  On a CUDA device one launch of csrc/mq_decode.cu
-(`grk_mq_decode`, one warp a codeblock running the bit-plane decoder on
-its lane 0) decodes everything; on the CPU the plain PyTorch twin
+(`grk_mq_decode`, one warp a codeblock with its flag words, context states
+and plane map in shared memory, running the bit-plane decoder in step with
+only lane 0 storing, its lanes split over applying each plane to the
+destination) decodes everything; on the CPU the plain PyTorch twin
 `decode_cblks_mq_plain` does.
 
 Every path decodes corrupt and truncated streams exactly as grok_tpu's
@@ -60,15 +62,15 @@ from .mq_tables import (
     SC_CN,
     SC_XOR,
     ZC_LUT,
+    launch_smem,
 )
 
 # per block, filled by the host: output pointer and row stride (elements),
 # h, w, orient, numbps, passes to decode, offset and length of its bytes in
 # the joined buffer, the padded length Lb, offset and count of its segments
-# in the segment table, offset of its pass map, offset of its flag scratch
+# in the segment table, offset of its pass map
 DESC = ("out_ptr", "out_stride", "h", "w", "orient", "numbps", "passes",
-        "data_off", "data_len", "lb", "seg_off", "nseg", "pass_off",
-        "scratch_off")
+        "data_off", "data_len", "lb", "seg_off", "nseg", "pass_off")
 RAW_FLAG = 0x80      # in the pass map: the pass is a bypass (raw) pass
 
 
@@ -88,8 +90,8 @@ def padded_lengths(items) -> np.ndarray:
 
 
 def layout(items):
-    """The host half: (desc (B, 14) int64 with the pointers, strides and
-    scratch offsets left 0, joined bytes uint8, segment table (S, 2) int32
+    """The host half: (desc (B, 13) int64 with the pointers and strides
+    left 0, joined bytes uint8, segment table (S, 2) int32
     [start, end) within each block's bytes, pass map uint8)."""
     n = len(items)
     desc = np.zeros((n, len(DESC)), np.int64)
@@ -167,15 +169,13 @@ def decode_cblks_mq(items, device, outs=None):
 
 
 def decode_args(items, device: torch.device, outs):
-    """The kernel's arguments on the device: (desc, segment table, pass
-    map, joined bytes, flag scratch), the first four uploaded in one copy;
-    writes items[k] into outs[k], which must outlive the launch."""
+    """The kernel's arguments: (desc, segment table, pass map, joined
+    bytes) on the device, uploaded in one copy, then the launch's dynamic
+    shared memory in bytes; writes items[k] into outs[k], which must
+    outlive the launch."""
     desc, data, segs, pmap = layout(items)
     desc[:, 0] = [o.data_ptr() for o in outs]
     desc[:, 1] = [o.stride(0) for o in outs]
-    flags = (desc[:, 2] + 2) * (desc[:, 3] + 2)
-    flags = (flags + 15) // 16 * 16
-    desc[:, 13] = np.cumsum(flags) - flags
     parts = [desc.view(np.uint8).reshape(-1), segs.view(np.uint8).reshape(
         -1), pmap, data]
     sizes = [len(p) for p in parts]
@@ -183,8 +183,7 @@ def decode_args(items, device: torch.device, outs):
     o = np.cumsum([0] + sizes)
     return (blob[o[0]:o[1]].view(torch.int64).view(-1, len(DESC)),
             blob[o[1]:o[2]].view(torch.int32), blob[o[2]:o[3]],
-            blob[o[3]:o[4]],
-            torch.empty(int(flags.sum()), dtype=torch.uint8, device=device))
+            blob[o[3]:o[4]], launch_smem(desc[:, 2:4].tolist()))
 
 
 def launch_decode(args, device: torch.device) -> None:
@@ -193,7 +192,7 @@ def launch_decode(args, device: torch.device) -> None:
 
     desc = args[0]
     launch("mq_decode", "grk_mq_decode", device,
-           (desc, device_tables(device), *args[1:]), (len(desc),))
+           (desc, device_tables(device), *args[1:4]), (len(desc), args[4]))
 
 
 # ------------------------------------------------------------ plain twin

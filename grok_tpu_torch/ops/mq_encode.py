@@ -15,9 +15,11 @@ MQ pass that is not terminated, the raw writer's completed bytes `+1` for
 a raw one, clamped to be monotone) and, with need_dist, distortions.
 
 On CUDA tensors it is one launch of csrc/mq_encode.cu (`grk_mq_encode`,
-one warp a codeblock running the bit-plane coder and the MQ and raw
-writers on its lane 0, segments finished in the kernel), then two copies
-back.  On CPU
+one warp a codeblock with its flag words, context states and plane map in
+shared memory, running the bit-plane coder and the MQ and raw writers in
+step with only lane 0 storing, the warp's lanes split over the load, the
+plane bits and the distortions, segments finished in the kernel; dynamic shared memory sized by the launch's
+largest block, `mq_tables.launch_smem`), then two copies back.  On CPU
 tensors it is the plain PyTorch twin `encode_cblks_mq_plain`, written
 after the reference's formulation so its stages can be held to the
 reference's:
@@ -54,9 +56,12 @@ from .mq_tables import (
     NMPS,
     NUM_CTX,
     QE,
+    QE_FUSED,
     SC_CN,
+    SC_WORD,
     SC_XOR,
     ZC_LUT,
+    launch_smem,
     out_capacity,
 )
 
@@ -71,9 +76,9 @@ _NBRS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
 
 # per block, filled by the host: coefficient pointer and row stride
 # (elements), h, w, orient, lazy, need_dist, the byte offset and size of
-# its output slot, the byte offset of its flag scratch
+# its output slot
 DESC = ("ptr", "stride", "h", "w", "orient", "lazy", "need_dist",
-        "slot_off", "slot_cap", "scratch_off")
+        "slot_off", "slot_cap")
 # per block, filled by the kernel: offset and length of the codeword in
 # the packed pool, numbps, status, sum of squared magnitudes, and the MQ
 # and raw decisions coded (the length of the block's serial chain)
@@ -175,8 +180,8 @@ def _empty() -> MQEncoded:
 def encode_args(blocks, orients, lazy, need_dist, bounds,
                 device: torch.device):
     """The kernel's arguments: (desc, slots, packed, used, meta, rates,
-    terms, dists, scratch) on the device.  The blocks must outlive the
-    launch."""
+    terms, dists) on the device, then the launch's dynamic shared memory in
+    bytes.  The blocks must outlive the launch."""
     n = len(blocks)
     desc = np.zeros((n, len(DESC)), np.int64)
     desc[:, 0] = [b.data_ptr() for b in blocks]
@@ -189,9 +194,6 @@ def encode_args(blocks, orients, lazy, need_dist, bounds,
                      zip(desc[:, 2:4].tolist(), bounds)], np.int64)
     desc[:, 7] = np.cumsum(caps) - caps
     desc[:, 8] = caps
-    flags = (desc[:, 2] + 2) * (desc[:, 3] + 2)
-    flags = (flags + 15) // 16 * 16
-    desc[:, 9] = np.cumsum(flags) - flags
     total = int(caps.sum())
     return (torch.from_numpy(desc).to(device),
             torch.empty(total, dtype=torch.uint8, device=device),
@@ -201,21 +203,21 @@ def encode_args(blocks, orients, lazy, need_dist, bounds,
             torch.empty((n, MAX_PASSES), dtype=torch.int32, device=device),
             torch.empty((n, MAX_PASSES), dtype=torch.uint8, device=device),
             torch.empty((n, MAX_PASSES), dtype=torch.int64, device=device),
-            torch.empty(int(flags.sum()), dtype=torch.uint8, device=device))
+            launch_smem(desc[:, 2:4].tolist()))
 
 
 _DEVICE_TABLES: dict = {}
 
 
 def device_tables(device: torch.device) -> torch.Tensor:
-    """The MQ tables the kernels take, one uint8 tensor on `device`: ZC
-    (4 x 256), SC context and XOR (256 each), NMPS, NLPS (94 each), the
-    initial contexts (19), then Qe as little-endian uint16 (94)."""
+    """The MQ tables the kernels take, one uint8 tensor on `device`
+    (csrc/mq_common.cuh kTab*): QE_FUSED as little-endian uint32 (94), ZC
+    (4 x 256), SC_WORD (256), the initial contexts (19)."""
     tab = _DEVICE_TABLES.get(device)
     if tab is None:
         host = np.concatenate([
-            ZC_LUT.reshape(-1), SC_CN, SC_XOR, NMPS, NLPS, INIT_CTX,
-            QE.astype("<u2").view(np.uint8)])
+            QE_FUSED.astype("<u4").view(np.uint8), ZC_LUT.reshape(-1),
+            SC_WORD, INIT_CTX])
         tab = _DEVICE_TABLES[device] = torch.from_numpy(
             np.ascontiguousarray(host)).to(device)
     return tab
@@ -226,8 +228,8 @@ def launch_encode(args, device: torch.device) -> None:
     desc, slots, packed, used = args[:4]
     used.zero_()
     launch("mq_encode", "grk_mq_encode", device,
-           (desc, device_tables(device), *args[1:]),
-           (len(desc), len(slots)))
+           (desc, device_tables(device), *args[1:8]),
+           (len(desc), len(slots), args[8]))
 
 
 def finish_encode(args) -> MQEncoded:

@@ -10,7 +10,17 @@ The tables are built from the port's own Tier-1 definitions
 - QE, NMPS, NLPS: the MQ probability table packed by si = state * 2 + mps,
   so one index gives Qe and both successors (NLPS folds in the MPS
   switch);
-- INIT_CTX: the si of every context at the start of a codeblock.
+- INIT_CTX: the si of every context at the start of a codeblock;
+- for the kernels (csrc/mq_common.cuh), which keep native/t1.cc's 16-bit
+  flag word a sample: SC_WORD[i], the SC context | XOR bit << 7 of the
+  8 bits the kernels gather from a flag word (N W E S sig, then W E N S
+  neg, from bit 0), and QE_FUSED[si], qe | MPS << 15 | NMPS << 16 |
+  NLPS << 24, one entry a context state.
+
+`smem_bytes(h, w)` is the kernels' dynamic shared memory for an h x w
+codeblock: the tables and context states, the flag words with their
+border, and a 16-bit plane map entry a stripe column; a launch takes its
+largest block's (`launch_smem`).
 
 The limits decide which codeblocks the device routers take, so they are
 the reference's: NUMBPS_BUCKETS, MAX_NUMBPS_DEVICE (26) and
@@ -67,6 +77,26 @@ def _build_luts():
 
 ZC_LUT, SC_CN, SC_XOR, QE, NMPS, NLPS = _build_luts()
 
+
+def _sc_word():
+    """SC_WORD from SC_CN and SC_XOR: the kernels' gather order mapped to
+    the twins' (a sign bit counts only with its significance bit)."""
+    out = np.zeros(256, dtype=np.uint8)
+    for i in range(256):
+        n, w, e, s = (i & 1, (i >> 1) & 1, (i >> 2) & 1, (i >> 3) & 1)
+        wn, en, nn, sn = ((i >> 4) & 1, (i >> 5) & 1, (i >> 6) & 1,
+                          (i >> 7) & 1)
+        old = (w | (w & wn) << 1 | e << 2 | (e & en) << 3 | n << 4
+               | (n & nn) << 5 | s << 6 | (s & sn) << 7)
+        out[i] = SC_CN[old] | SC_XOR[old] << 7
+    return out
+
+
+SC_WORD = _sc_word()
+QE_FUSED = (QE | (np.arange(94, dtype=np.uint32) & 1) << 15
+            | NMPS.astype(np.uint32) << 16
+            | NLPS.astype(np.uint32) << 24).astype(np.uint32)
+
 INIT_CTX = np.zeros(NUM_CTX, dtype=np.uint8)
 INIT_CTX[CTX_ZC] = 4 * 2
 INIT_CTX[CTX_RL] = 3 * 2
@@ -77,3 +107,25 @@ def out_capacity(h: int, w: int, numbps: int) -> int:
     """Bytes a codeblock's codeword may take: the native coder's bound
     (native/t1.cc), h * w * numbps / 3 + 1024."""
     return h * w * max(numbps, 1) // 3 + 1024
+
+
+# csrc/mq_common.cuh kSmemFixed: the tables (1,656 B, to 16), the 19
+# context states (76 B, to 16) and a sink of the same size ahead of a
+# block's flag words
+SMEM_FIXED = 1824
+
+
+def smem_bytes(h: int, w: int) -> int:
+    """Dynamic shared memory of the MQ kernels for an h x w codeblock:
+    SMEM_FIXED, the 16-bit flag words of ceil(h / 4) + 2 stripes of w + 2
+    columns of 4 rows (to 16 bytes), then the plane map, 16 bits a stripe
+    column (to 16 bytes)."""
+    stripes = (h + 3) // 4
+    flags = (stripes + 2) * (w + 2) * 4 * 2
+    return (SMEM_FIXED + (flags + 15) // 16 * 16
+            + (2 * stripes * w + 15) // 16 * 16)
+
+
+def launch_smem(shapes) -> int:
+    """A launch's dynamic shared memory: its largest block's."""
+    return max(smem_bytes(int(h), int(w)) for h, w in shapes)

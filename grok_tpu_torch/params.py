@@ -178,9 +178,11 @@ class CompressParams:
     # number of threads for host stages (0 = all cores); parity with -H
     num_threads: int = 0
 
-    # which backend: "device" (the transforms and HT Tier-1 on the codec
-    # call's device, MQ and ragged HT codeblocks on the native host coder)
-    # | "native" (C++ host path) | "python" | "auto" (as "native")
+    # which backend: "device" (the transforms and HT and MQ Tier-1 on the
+    # codec call's device; the MQ blocks outside the device routers'
+    # limits, MQ decode shape groups under 8, ragged HT blocks and Tier-2
+    # on the native host coder) | "native" (C++ host path) | "python" |
+    # "auto" (as "native")
     backend: str = "device"
 
     # multi-device meshes are not ported yet (ROADMAP A13): anything but

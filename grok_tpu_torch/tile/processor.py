@@ -53,7 +53,7 @@ from .geometry import (
 from .ratecontrol import (HullIndex, candidate_slopes, convex_hull,
                           passes_for_threshold)
 
-log = logging.getLogger("grok_tpu")
+log = logging.getLogger("grok_tpu_torch")
 
 # tiles whose transforms took the host path, by direction
 HOST_PATH_TILES: dict[str, int] = {"encode": 0, "decode": 0}
@@ -61,13 +61,17 @@ HOST_PATH_TILES: dict[str, int] = {"encode": 0, "decode": 0}
 
 def host_backend(backend: str) -> str:
     """The Tier-1 backend for a requested codec backend.  "device" stays
-    "device": the device transforms, device HT Tier-1, and the native host
-    coder for MQ and ragged HT blocks, which must load: where it does not,
-    this raises rather than coding those blocks in pure Python."""
+    "device": the device transforms and device HT and MQ Tier-1, with the
+    native host coder for what stays on the host (MQ blocks outside the
+    device routers' limits, MQ decode shape groups under 8, ragged HT
+    blocks, Tier-2), which must load: where it does not, this raises rather
+    than coding those blocks in pure Python."""
     if backend == "device" and t1_backend.resolve("native") != "native":
         raise RuntimeError(
-            "backend='device' codes MQ and ragged HT codeblocks on the "
-            "native host coder, which did not load")
+            "backend='device' codes the MQ blocks outside the device "
+            "routers' limits, MQ decode shape groups under 8, ragged HT "
+            "blocks and Tier-2 on the native host coder, which did not "
+            "load")
     return backend
 
 

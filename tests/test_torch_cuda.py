@@ -377,3 +377,37 @@ def test_mq_encode_kernel_refuses_out_of_range(gen):
     b = torch.full((4, 4), 1 << 20, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="range"):
         mq_encode.encode_cblks_mq([b], 0, False, True)
+
+
+@pytest.mark.parametrize("dist", [0, 1])
+@pytest.mark.parametrize("style", mq_cases.STYLES)
+def test_mq_kernels_extreme_shapes(gen, style, dist):
+    """4x1024, 1024x4, 8x512 and 512x8 with 64x64 blocks in one launch
+    each way, shared memory sized by the largest: codewords, rates,
+    terminations, distortions and samples equal to the twins'."""
+    rng = np.random.default_rng(11)
+    blocks = mq_cases.extreme_blocks(rng)
+    orients = rng.integers(0, 4, len(blocks)).tolist()
+    lazy = style == mq_cases.CblkStyle.LAZY
+    reset_launches()
+    got = mq_encode.encode_cblks_mq([torch.from_numpy(b).cuda()
+                                     for b in blocks], orients, lazy, dist)
+    assert LAUNCHES["mq_encode"] == 1
+    _mq_same(got, mq_encode.encode_cblks_mq_plain(
+        [torch.from_numpy(b) for b in blocks], orients, lazy, dist))
+    # the kernel's codewords, every third block capped to 2/3 of its passes
+    items = []
+    for k, b in enumerate(blocks):
+        n = got.num_passes(k)
+        npd = max(1, 2 * n // 3) if k % 3 == 1 and n else n
+        seg, last = [], 0
+        for i in range(npd):
+            if got.terms[k, i] or i == npd - 1:
+                seg.append(int(got.rates[k, i]) - last)
+                last = int(got.rates[k, i])
+        items.append((got.data[k][:last], seg, npd, int(got.numbps[k]),
+                      b.shape[0], b.shape[1], orients[k], style))
+    outs = mq_decode.decode_cblks_mq(items, "cuda")
+    assert LAUNCHES["mq_decode"] == 1
+    for o, r in zip(outs, mq_decode.decode_cblks_mq_plain(items)):
+        assert torch.equal(o.cpu(), r)

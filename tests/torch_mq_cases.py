@@ -45,6 +45,22 @@ def mixed_blocks(rng, n=24):
     return out
 
 
+# the widest legal codeblocks (xcb + ycb = 12 and 11 with xcb or ycb 2 or
+# 3), launched together with 64 x 64 blocks: the kernels size their shared
+# memory by the launch's largest block
+EXTREME_SHAPES = [(1024, 4), (4, 1024), (512, 8), (8, 512)]
+
+
+def extreme_blocks(rng, mx=3000):
+    """One block of each extreme shape and two of 64 x 64, 40% zeros."""
+    out = []
+    for h, w in EXTREME_SHAPES + [(64, 64), (64, 64)]:
+        b = rng.integers(-mx, mx + 1, size=(h, w)).astype(np.int32)
+        b[rng.random((h, w)) < 0.4] = 0
+        out.append(b)
+    return out
+
+
 def segments(passes, npd):
     """The codeword segment lengths of the first npd passes, as Tier-2
     hands them over (split at terminations and after the last pass)."""
