@@ -8,20 +8,26 @@
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 a source, in parallel) and the native host coder from native/, holds each
 kernel bit-exact against its plain PyTorch twin at the shapes the lossless
-5/3 path gives it (the HT Tier-1 kernels byte for byte, on corrupt streams
-and under the three CxtVLC table swaps too; the MQ Tier-1 kernels on
-grok_tpu's test shapes, distortion-tracked blocks, corrupt and truncated
+5/3 path and the lossy 9/7 path give it (the 9/7 level and ICT kernels
+bit for bit, float outputs by their bits, on config 2's level shapes, odd
+and short planes, 8-, 12- and 16-bit stacks of 1, 3 and 4 components, and
+NaN and huge inputs; the HT Tier-1 kernels byte for byte, on corrupt
+streams and under the three CxtVLC table swaps too; the MQ Tier-1 kernels
+on grok_tpu's test shapes, distortion-tracked blocks, corrupt and truncated
 streams, the widest legal shapes and case (a)'s 70 codeblocks), times
-kernel and twin (the four HT kernels on case (b)'s codeblocks, the two MQ
-kernels on three launch shapes: case (c)'s 3,360 codeblocks, its tile 0
-and case (a)'s blocks, each with a round-trip check), then
-drives grok_tpu_torch.compress / decompress with their defaults (the card)
-on three cases:
+kernel and twin (the transform kernels at cases (b) and (d)'s level-1
+shapes, the four HT kernels on case (b)'s codeblocks, the two MQ kernels
+on three launch shapes: case (c)'s 3,360 codeblocks, its tile 0 and case
+(a)'s blocks, each with a round-trip check), then drives
+grok_tpu_torch.compress / decompress with their defaults (the card) on
+four cases:
 
   (a) BASELINE config 1: 512x512 8-bit gray, 6 resolutions, MQ coder;
   (b) a 3840x2160 8-bit RGB frame, lossless 5/3 + RCT, 6 resolutions,
       HT block coder, one tile: the main path at full size;
-  (c) 2048x2048 8-bit RGB in 512x512 tiles, MQ coder (batched tiles).
+  (c) 2048x2048 8-bit RGB in 512x512 tiles, MQ coder (batched tiles);
+  (d) BASELINE config 2: 2048x2048 8-bit RGB, lossy 9/7 + ICT, 5
+      resolutions, layer_rates [20], MQ coder, one tile.
 
 Each case must write the same bytes as the port's plain route (its twins,
 device="cpu") and its host route (backend="native") in this process,
@@ -30,11 +36,15 @@ launch of each level kernel a DWT level, one of each RCT kernel, one of
 each HT kernel; cases (a) and (c): one MQ encode and one MQ decode launch
 a tile) and send no tile down the host path; each case says how many
 codeblocks each direction coded on the card and on the native coder, and
-cases (a), (b) and (c) where their Tier-1 time goes.  Case (c)'s plain route
-(the MQ twins on the CPU, slow at 16 tiles) is compared on its first
-512x512 tile coded as an image of its own; a multi-layer variant of (c)
-(layer_rates [40, 10, 1], the distortion-tracking path) is held to the
-host route.  No jax and no grok_tpu module may load.
+cases (a), (b), (c) and (d) where their Tier-1 (and (d) its transform)
+time goes.  Case (c)'s and (d)'s plain routes (the MQ twins on the CPU,
+slow at this size) are compared on a first 512x512 part coded as an image
+of its own; a multi-layer variant of (c) (layer_rates [40, 10, 1], the
+distortion-tracking path) is held to the host route.  Case (d) is lossy:
+instead of an exact decode it must meet its 20:1 rate, its round trip's
+PSNR must be within 0.1 dB of the host route's, and the card's decode of
+the host route's codestream within 1 of the host route's own decode.  No
+jax and no grok_tpu module may load.
 Every phase raises on failure.  The last two lines are one JSON object with
 the kernels' launches, errors, times and bounds, and the ok line.  Exits
 nonzero, printing neither, when no CUDA device is present.
@@ -96,6 +106,17 @@ def make_rgb(h, w, seed):
                      for c in range(3)], axis=-1)
 
 
+def make_config2(h, w):
+    """bench.py config2's content: BASELINE config 2's RGB (smooth colour
+    fields and sensor-like noise), 8 bits a sample, made at h x w."""
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:h, 0:w].astype(float)
+    rgb = np.stack([128 + 90 * np.sin(xx / 23) * np.cos(yy / 17),
+                    128 + 80 * np.sin(xx / 15),
+                    128 + 80 * np.cos(yy / 19)], -1)
+    return (rgb + rng.normal(0, 3, rgb.shape)).clip(0, 255).astype(np.int32)
+
+
 def tiles_c():
     """Case (c)'s image as 16 batched 512x512 tiles, (3, 16, 512, 512)
     int32, as the batched drivers hand them to the pipeline."""
@@ -108,6 +129,11 @@ def randint(gen, shape, lo, hi):
     """int32 tensor on the card, uniform in [lo, hi)."""
     return torch.randint(lo, hi, shape, generator=gen, device="cuda",
                          dtype=torch.int64).to(torch.int32)
+
+
+def normal(gen, shape, scale):
+    """float32 tensor on the card, normal with this standard deviation."""
+    return torch.randn(shape, generator=gen, device="cuda") * scale
 
 
 def extremes(gen, shape):
@@ -197,6 +223,91 @@ def check_rct(gen, mct):
             for fn, plain, name in pairs:
                 err[name] = max(err[name], max_err(fn(*planes, 16, sgnd),
                                                    plain(*planes, 16, sgnd)))
+    return err
+
+
+# quantizer steps of a level's (ll, hl, lh, hh), of the size the codec
+# gives 8-bit 9/7 bands; LL is quantized only at the coarsest level
+STEPS_97 = (0.37, 0.61, 0.59, 1.13)
+FLOAT_EXTREMES = (float("nan"), float("inf"), -float("inf"), 3e9, -3e9, 2.5,
+                  3.5, -2.5, -0.5, 0.5, 2147483520.0, -2147483648.0, 1e-40,
+                  -1e-40, 255.5, 127.49999)
+
+
+def bit_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """max_err of two tensors on their bits: float32 compared as int32, so
+    any differing bit counts."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype:
+        raise AssertionError(f"dtype {a.dtype} != {b.dtype}")
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return max_err(a, b)
+
+
+def check_lossy(gen, dwt, mct):
+    """The 9/7 level and ICT kernels against their twins (on the CPU),
+    bit for bit: every level shape of case (d) (3 x 2048 x 2048 down to
+    256 x 256), odd and short planes, with and without steps, the inverse
+    from the forward's float and doubled-domain bands; the ICT kernels on
+    8-, 12- and 16-bit stacks, signed and unsigned, of 1, 3 and 4
+    components with and without the ICT, with and without a step, on case
+    (d)'s full stack, and on NaN, infinite, huge and tied inputs."""
+    err = dict.fromkeys(("fwd97_level", "inv97_level", "ict_forward_shift",
+                         "ict_inverse_unshift"), 0)
+    sizes = (1, 2, 3, 37, 135, 257)
+    cases = [normal(gen, (3, 1, h, w), 600.0)
+             for (h, w) in level_shapes(2048, 2048, 5)]
+    cases += [normal(gen, (2, h, w), 300.0) for h in sizes for w in sizes]
+    for x in cases:
+        h, w = x.shape[-2:]
+        for steps in (None, STEPS_97):
+            bands = dwt.fwd_level(x, False, steps)
+            want = dwt.fwd_level_plain(x.cpu(), False, steps)
+            err["fwd97_level"] = max([err["fwd97_level"]] + [
+                bit_err(b, r) for b, r in zip(bands, want)])
+            if steps is not None:
+                bands = [2 * b + torch.sign(b) for b in bands]
+            err["inv97_level"] = max(err["inv97_level"], bit_err(
+                dwt.inv_level(*bands, h, w, False, steps),
+                dwt.inv_level_plain(*(b.cpu() for b in bands), h, w, False,
+                                    steps)))
+    stacks = []
+    for prec in (8, 12, 16):
+        for sgnd in (False, True):
+            lo = -(1 << (prec - 1)) if sgnd else 0
+            for c, m in ((1, 0), (3, 0), (3, 1), (4, 1)):
+                stacks.append((randint(gen, (c, 1, 135, 257), lo,
+                                       lo + (1 << prec)), m, prec, sgnd))
+    stacks.append((randint(gen, (3, 1, 2048, 2048), 0, 256), 1, 8, False))
+    for x, m, prec, sgnd in stacks:
+        kw = dict(mct=m, prec=prec, sgnd=sgnd)
+        for step in (0.0, 0.73):
+            err["ict_forward_shift"] = max(err["ict_forward_shift"], bit_err(
+                mct.ict_forward_shift(x, step=step, **kw),
+                mct.ict_forward_shift_plain(x.cpu(), step=step, **kw)))
+        for y, step in ((normal(gen, x.shape, float(1 << prec)), 0.0),
+                        (randint(gen, x.shape, -(1 << prec), 1 << prec),
+                         0.73)):
+            err["ict_inverse_unshift"] = max(
+                err["ict_inverse_unshift"], bit_err(
+                    mct.ict_inverse_unshift(y, step=step, **kw),
+                    mct.ict_inverse_unshift_plain(y.cpu(), step=step, **kw)))
+    vals = torch.tensor(FLOAT_EXTREMES)
+    x = vals.repeat(4, 1, 4, 1).contiguous()
+    for prec, sgnd in ((8, False), (8, True), (16, False), (31, True)):
+        for m in (0, 1):
+            kw = dict(mct=m, prec=prec, sgnd=sgnd)
+            err["ict_inverse_unshift"] = max(
+                err["ict_inverse_unshift"], bit_err(
+                    mct.ict_inverse_unshift(x.cuda(), **kw),
+                    mct.ict_inverse_unshift_plain(x, **kw)))
+    big = vals.reshape(1, 4, 4) * 1e30
+    err["fwd97_level"] = max([err["fwd97_level"]] + [
+        bit_err(b, r) for b, r in zip(dwt.fwd_level(big.cuda(), False,
+                                                    STEPS_97),
+                                      dwt.fwd_level_plain(big, False,
+                                                          STEPS_97))])
     return err
 
 
@@ -717,6 +828,61 @@ def mq_breakdown(name, arr, kw, data):
         f"whole-tile native {hdec.ms['host']:.1f}")
 
 
+def lossy_breakdown(arr, kw, data):
+    """Case (d)'s split over one encode and one decode on the card and one
+    on the host route: the transforms (card: the pipeline with its copies,
+    processor._analyse / _synthesise; host route: the tile processor's
+    numpy and native transforms) and MQ Tier-1 (card: the routers with
+    their kernels and host work; host route: whole-tile native Tier-1),
+    beside each direction's whole call."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+    from grok_tpu_torch.t1 import backend as t1
+    from grok_tpu_torch.tile import processor
+
+    tc, td = processor.TileCompressor, processor.TileDecompressor
+    img = GrkImage.from_array(arr)
+    card, host = {}, {}
+
+    def run(into, fn, **targets):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with Timed(**targets) as timed:
+            fn()
+        torch.cuda.synchronize()
+        into.update(timed.ms)
+        into[fn.__name__] = 1e3 * (time.perf_counter() - t)
+
+    def encode():
+        grok_tpu_torch.compress(img, CompressParams(**kw))
+
+    def decode():
+        grok_tpu_torch.decompress(data)
+
+    def encode_host():
+        grok_tpu_torch.compress(img, CompressParams(backend="native", **kw))
+
+    def decode_host():
+        grok_tpu_torch.decompress(data, DecompressParams(backend="native"))
+
+    run(card, encode, analysis=(processor, "_analyse"),
+        mq_enc=(t1, "_encode_mq_device"))
+    run(card, decode, synthesis=(processor, "_synthesise"),
+        mq_dec=(t1, "_decode_mq_device"))
+    run(host, encode_host, analysis=(tc, "run_transforms"),
+        mq_enc=(tc, "_run_t1_tile_native_enc"))
+    run(host, decode_host, synthesis=(td, "reconstruct"),
+        mq_dec=(td, "_run_t1_tile_native"))
+    log(f"stages (d) ms: encode: analysis card {card['analysis']:.1f}, host "
+        f"route {host['analysis']:.1f}; MQ Tier-1 card {card['mq_enc']:.1f},"
+        f" host route whole-tile native {host['mq_enc']:.1f}; whole encode "
+        f"card {card['encode']:.1f}, host route {host['encode_host']:.1f}. "
+        f"decode: synthesis card {card['synthesis']:.1f}, host route "
+        f"{host['synthesis']:.1f}; MQ Tier-1 card {card['mq_dec']:.1f}, "
+        f"host route whole-tile native {host['mq_dec']:.1f}; whole decode "
+        f"card {card['decode']:.1f}, host route {host['decode_host']:.1f}")
+
+
 class Timed:
     """Accumulate the host-clock ms of calls to module attributes, each
     call ending in a synchronize, while the context is open."""
@@ -876,10 +1042,80 @@ def time_kernels(gen, dwt, mct):
     return times
 
 
+def time_lossy(gen, dwt, mct):
+    """The 9/7 level and ICT kernels and their twins (on the card) at case
+    (d)'s level-1 shapes, 3 x 2048 x 2048, as the codec calls them (the
+    level's LL float32, its high bands quantized; the inverse from
+    doubled-domain high bands), in turns (twin, kernel, kernel, twin); for
+    grk_ict_fwd also the one PyTorch call that computes its 3x3 transform,
+    torch.matmul of the matrix and the (3, H W) float32 samples (timed
+    only: it rounds otherwise).  Returns ({name: (ms, plain_ms, bound_ms,
+    bound_by)}, {name: library ms}), times amortised."""
+    h = w = 2048
+    x = normal(gen, (3, 1, h, w), 600.0)
+    steps = (0.0,) + STEPS_97[1:]
+    bands = dwt.fwd_level(x, False, steps)
+    dbl = [bands[0]] + [2 * b + torch.sign(b) for b in bands[1:]]
+    img = randint(gen, (3, 1, h, w), 0, 256)
+    ycc = mct.ict_forward_shift(img, mct=1, prec=8, sgnd=False)
+    matrix = torch.tensor(mct.ICT_FWD_F32, device="cuda")
+    flat = img.reshape(3, -1).to(torch.float32)
+    n = x.numel()
+    kw = dict(mct=1, prec=8, sgnd=False)
+    # (kernel, twin, library call, float operations a sample): a level
+    # does, on each axis, four lifting steps of three operations on half
+    # the samples and a scaling (7), and the quantizer or dequantizer's
+    # few; the forward ICT with its shift and cast 7, the inverse with its
+    # rounding, unshift and clip about 6
+    runs = {
+        "fwd97_level": (lambda: dwt.fwd_level(x, False, steps),
+                        lambda: dwt.fwd_level_plain(x, False, steps),
+                        None, 18),
+        "inv97_level": (lambda: dwt.inv_level(*dbl, h, w, False, steps),
+                        lambda: dwt.inv_level_plain(*dbl, h, w, False,
+                                                    steps), None, 16),
+        "ict_forward_shift": (
+            lambda: mct.ict_forward_shift(img, **kw),
+            lambda: mct.ict_forward_shift_plain(img, **kw),
+            lambda: torch.matmul(matrix, flat), 7),
+        "ict_inverse_unshift": (
+            lambda: mct.ict_inverse_unshift(ycc, **kw),
+            lambda: mct.ict_inverse_unshift_plain(ycc, **kw), None, 6),
+    }
+    times, library_ms = {}, {}
+    for name, (kernel, plain, library, ops) in runs.items():
+        p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
+                          time_ms(plain))
+        k_single, k_amort = min(k1[0], k2[0]), min(k1[1], k2[1])
+        p_single, p_amort = min(p1[0], p2[0]), min(p1[1], p2[1])
+        lib = time_ms(library) if library else None
+        # 4 B a sample in and 4 B out (every band, float32 or int32)
+        nbytes = 8 * n
+        bounds = {"bytes": 1e3 * nbytes / PEAK_BYTES_S,
+                  "operations": 1e3 * ops * n / PEAK_OPS_S}
+        bound_by = max(bounds, key=bounds.get)
+        log(f"time {name:24s} {n} samples: kernel {k_single:.4f} ms per "
+            f"launch, {k_amort:.4f} ms amortised "
+            f"({nbytes / k_amort / 1e9:.1f} TB/s at 8 B/sample); twin "
+            f"{p_single:.4f} ms per launch, {p_amort:.4f} ms amortised; "
+            + (f"torch.matmul {lib[0]:.4f} ms per launch, {lib[1]:.4f} ms "
+               "amortised; " if lib else "no single PyTorch call; ")
+            + f"bound {bounds[bound_by]:.4f} ms ({bound_by})")
+        times[name] = (k_amort, p_amort, bounds[bound_by], bound_by)
+        if lib:
+            library_ms[name] = lib[1]
+    return times, library_ms
+
+
+def psnr(a: np.ndarray, b: np.ndarray, peak: int = 255) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(peak * peak / mse)
+
+
 # ------------------------------------------------------------- codec cases
 
 def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
-               mq=None):
+               mq=None, rate=None):
     """Encode and decode `arr` through grok_tpu_torch on the card, with
     the entry points' defaults; check the bytes against the port's plain
     route (its twins on the CPU: on `arr`, or, with plain an array, on that
@@ -887,8 +1123,10 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
     False not at all) and its host route (backend="native"), the decode
     against the input, and the launch and host-path counters (every
     counter in `expect` risen; `exact`, if given, the counts exactly; `mq`,
-    if given, the MQ codeblock counts exactly).  Returns the launch counts
-    and the encoded bytes."""
+    if given, those MQ codeblock counts exactly).  With `rate` (lossy,
+    layer_rates [rate]) the bytes are not held to the host route's and the
+    decode not to the input: lossy_checks instead.  Returns the launch
+    counts and the encoded bytes."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
     from grok_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -917,7 +1155,8 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
                                  f"{own.shape} differs from the plain route")
     host = grok_tpu_torch.compress(img, CompressParams(backend="native",
                                                        **kw))
-    refs.append((host, "host route"))
+    if rate is None:
+        refs.append((host, "host route"))
     reset_launches()
     for counts in (HOST_PATH_TILES, DEVICE_CODEBLOCKS):
         for k in counts:
@@ -931,7 +1170,9 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
         if data != ref:
             raise AssertionError(f"case {name}: codestream differs from the "
                                  f"{route} ({len(data)} vs {len(ref)} bytes)")
-    if not np.array_equal(out.to_array(), arr.astype(np.int32)):
+    if rate is not None:
+        lossy_checks(name, arr, rate, data, out.to_array(), host)
+    elif not np.array_equal(out.to_array(), arr.astype(np.int32)):
         raise AssertionError(f"case {name}: decode is not bit-exact")
     missing = [k for k in expect if counts[k] == 0]
     if missing:
@@ -945,8 +1186,10 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
     if mq is not None and any(blocks[k] != v for k, v in mq.items()):
         raise AssertionError(f"case {name}: MQ codeblocks {blocks}, "
                              f"expected {mq}")
-    log(f"case {name}: {len(data)} bytes identical to the "
-        f"{' and '.join(r for _, r in refs)}, decode bit-exact, launches "
+    same = (' and '.join(r for _, r in refs)
+            or "plain route on the part coded on its own (above)")
+    log(f"case {name}: {len(data)} bytes identical to the {same}, decode "
+        f"{'bit-exact' if rate is None else 'lossy (above)'}, launches "
         f"{counts}, host-path tiles {host_tiles}")
     log(f"case {name}: codeblocks through Tier-1 under backend=device: HT "
         f"encode {blocks['encode_device']} on the card, "
@@ -980,6 +1223,58 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
         f"({enc_ref * 1e3:.1f} ms), decode {pixels / dec_ref / 1e6:.2f} MP/s "
         f"({dec_ref * 1e3:.1f} ms); {counters}")
     return counts, data
+
+
+def packet_bytes(data: bytes) -> int:
+    """The bytes of a raw codestream's packets: every tile-part's length
+    (Psot) less its SOT..SOD header, walking the marker segments."""
+    pos, total = 2, 0  # after SOC
+    while data[pos:pos + 2] != b"\xff\x90":  # the main header, to the SOT
+        pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+    while data[pos:pos + 2] == b"\xff\x90":
+        start = pos
+        psot = int.from_bytes(data[pos + 6:pos + 10], "big")
+        while data[pos:pos + 2] != b"\xff\x93":  # the tile-part header
+            pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        total += psot - (pos + 2 - start)
+        pos = start + psot
+    return total
+
+
+def lossy_checks(name, arr, rate, data, out, host):
+    """A lossy case's checks: the card's packet bytes within the 1/rate of
+    the samples' bytes that layer_rates [rate] asks for (rate control
+    budgets the packets; the headers come on top); the PSNR of its
+    round trip within 0.1 dB of the host route's; the card's decode of the
+    host route's codestream within 1 of the host route's own decode.  Says
+    whether the card's bytes and that decode also equal the host route's
+    exactly (they do when the 9/7 arithmetic agrees to the bit)."""
+    import grok_tpu_torch
+    from grok_tpu_torch import DecompressParams
+
+    limit = arr.size * 1 / rate  # 8-bit samples: one byte each
+    packets = packet_bytes(data)
+    if packets > limit:
+        raise AssertionError(f"case {name}: {packets} packet bytes, over "
+                             f"the {limit:.0f} of a {rate}:1 rate")
+    host_out = grok_tpu_torch.decompress(
+        host, DecompressParams(backend="native")).to_array()
+    card_of_host = grok_tpu_torch.decompress(host).to_array()
+    p_card, p_host = psnr(arr, out), psnr(arr, host_out)
+    if abs(p_card - p_host) > 0.1:
+        raise AssertionError(f"case {name}: PSNR {p_card:.3f} dB on the "
+                             f"card, {p_host:.3f} dB on the host route")
+    diff = int(np.abs(card_of_host.astype(np.int64) - host_out).max())
+    if diff > 1:
+        raise AssertionError(f"case {name}: the card's decode of the host "
+                             f"route's codestream is {diff} off its own")
+    log(f"case {name}: {len(data)} bytes, {packets} of them packets, of "
+        f"{limit:.0f} allowed ({rate}:1); "
+        f"PSNR card {p_card:.4f} dB, host route {p_host:.4f} dB; the card's "
+        f"codestream {'equals' if data == host else 'differs from'} the "
+        f"host route's ({len(host)} bytes); the card's decode of the host "
+        f"route's codestream is {diff} off the host route's own decode, "
+        f"{int(np.count_nonzero(card_of_host != host_out))} samples differ")
 
 
 def turns(ref, port) -> tuple[float, float]:
@@ -1068,9 +1363,15 @@ def main() -> int:
     processor.host_backend("device")  # raises if the native coder fails
     log(f"native host coder ready in {time.perf_counter() - t0:.1f} s")
 
+    start = time.perf_counter()
+
+    def phase(label):
+        log(f"phase {label} done at {time.perf_counter() - start:.0f} s")
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err = check_levels(gen, dwt)
     err.update(check_rct(gen, mct))
+    err.update(check_lossy(gen, dwt, mct))
     err.update(check_ht(ht_encode, ht_decode, ht_tables, torch_ht_cases))
     gray = make_image()
     bands_a = pipeline.analysis(
@@ -1079,13 +1380,17 @@ def main() -> int:
     err.update(check_mq(mq_encode, mq_decode, torch_mq_cases,
                         *band_blocks(bands_a)))
     torch.cuda.synchronize()
+    phase("kernel checks")
     log(f"kernel vs twin max abs err: {err}")
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their twins: {err}")
     times = time_kernels(gen, dwt, mct)
+    lossy_times, library_ms = time_lossy(gen, dwt, mct)
+    times.update(lossy_times)
     uhd = make_rgb(*UHD, seed=SEED)
     times.update(time_ht(ht_population(uhd, pipeline), ht_encode, ht_decode,
                          err))
+    phase("transform and HT kernel times")
     rgb_c = make_rgb(2048, 2048, SEED)
     bands_c = pipeline.analysis(torch.from_numpy(np.ascontiguousarray(
         tiles_c())).cuda(), numres=6, reversible=True, mct=1, prec=8,
@@ -1095,11 +1400,14 @@ def main() -> int:
     if any(err.values()):
         raise AssertionError(f"kernels disagree with their twins: {err}")
 
+    phase("MQ kernel times")
     lift = ("fwd53_level", "inv53_level")
     transforms = lift + ("rct_forward_shift", "rct_inverse_unshift")
+    lossy = ("fwd97_level", "inv97_level", "ict_forward_shift",
+             "ict_inverse_unshift")
     ht = ("ht_encode", "ht_destuff", "ht_decode", "ht_magsgn")
     mq = ("mq_encode", "mq_decode")
-    every = transforms + ht + mq
+    every = transforms + lossy + ht + mq
     if set(LAUNCHES) != set(every):
         raise AssertionError(f"launch counters {sorted(LAUNCHES)}, "
                              f"expected {sorted(every)}")
@@ -1110,9 +1418,8 @@ def main() -> int:
     kw_a = dict(numresolution=6)
     _, data_a = codec_case(
         "a config-1 512x512 gray MQ", gray, kw_a, lift + mq, card_note,
-        exact=dict(LAUNCHES, fwd53_level=5, inv53_level=5,
-                   rct_forward_shift=0, rct_inverse_unshift=0,
-                   **dict.fromkeys(ht, 0), mq_encode=1, mq_decode=1),
+        exact=dict(dict.fromkeys(every, 0), fwd53_level=5, inv53_level=5,
+                   mq_encode=1, mq_decode=1),
         mq=dict(mq_encode_device=70, mq_encode_host=0,
                 mq_decode_device=63, mq_decode_host=7))
     # the main path: one launch of each level kernel a level, five levels,
@@ -1122,10 +1429,9 @@ def main() -> int:
     counts, data_b = codec_case(
         "b 3840x2160 RGB HT lossless", uhd, kw_b, transforms + ht,
         card_note,
-        exact={"fwd53_level": 5, "inv53_level": 5, "rct_forward_shift": 1,
-               "rct_inverse_unshift": 1, "ht_encode": 1, "ht_destuff": 1,
-               "ht_decode": 1, "ht_magsgn": 1, "mq_encode": 0,
-               "mq_decode": 0})
+        exact=dict(dict.fromkeys(every, 0), fwd53_level=5, inv53_level=5,
+                   rct_forward_shift=1, rct_inverse_unshift=1,
+                   **dict.fromkeys(ht, 1)))
     # case (c): 16 tiles, 210 codeblocks a tile on the card each way; its
     # plain route on its first tile coded as an image of its own
     kw_c = dict(numresolution=6, tile_size=(512, 512))
@@ -1143,10 +1449,31 @@ def main() -> int:
     codec_case("c-layers 2048x2048 RGB 512^2 tiles MQ, layer_rates "
                "[40, 10, 1]", rgb_c, dict(kw_c, layer_rates=[40, 10, 1]),
                transforms + mq, card_note, plain=False, mq=mq_c)
+    phase("cases (a) to c-layers")
+    # case (d), BASELINE config 2: one tile, four launches of each 9/7
+    # level kernel (5 resolutions), one of each ICT kernel, one MQ launch
+    # each way for its 3,072 codeblocks (1,024 a component, all within the
+    # rate-targeted router's numbps 20); its plain route on its first
+    # 512x512 part coded as an image of its own
+    rgb_d = make_config2(2048, 2048)
+    kw_d = dict(numresolution=5, irreversible=True, layer_rates=[20])
+    counts_d, data_d = codec_case(
+        "d config-2 2048x2048 RGB 9/7 + ICT, layer_rates [20]", rgb_d, kw_d,
+        lossy + mq, card_note, plain=rgb_d[:512, :512], rate=20,
+        exact=dict(dict.fromkeys(every, 0), fwd97_level=4, inv97_level=4,
+                   ict_forward_shift=1, ict_inverse_unshift=1, mq_encode=1,
+                   mq_decode=1),
+        mq=dict(mq_encode_device=3072, mq_encode_host=0))
+    # the 9/7 and ICT kernels' launches are those of their own path
+    counts.update({k: counts_d[k] for k in lossy})
+    phase("case (d)")
     stage_breakdown(uhd)
     tier1_breakdown(uhd, kw_b, data_b)
     mq_breakdown("a", gray, kw_a, data_a)
     mq_breakdown("c", rgb_c, kw_c, data_c)
+    lossy_breakdown(rgb_d, kw_d, data_d)
+    mq_breakdown("d", rgb_d, kw_d, data_d)
+    phase("stage lines")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))
     if loaded:
@@ -1174,17 +1501,28 @@ def main() -> int:
                       "grok_tpu/ops/mq_encode.py:729"),
         "mq_decode": ("grok_tpu_torch/csrc/mq_decode.cu",
                       "grok_tpu/ops/mq_decode.py:340"),
+        "fwd97_level": ("grok_tpu_torch/csrc/dwt97_level.cu",
+                        "grok_tpu/ops/dwt.py:119"),
+        "inv97_level": ("grok_tpu_torch/csrc/dwt97_level.cu",
+                        "grok_tpu/ops/dwt.py:129"),
+        "ict_forward_shift": ("grok_tpu_torch/csrc/ict.cu",
+                              "grok_tpu/ops/mct.py:46"),
+        "ict_inverse_unshift": ("grok_tpu_torch/csrc/ict.cu",
+                                "grok_tpu/ops/mct.py:54"),
     }
     for name in every:
         source, tpu = replaces[name]
         ms, plain_ms, bound_ms, bound_by = times[name]
-        # no single PyTorch call computes a 5/3 level, the fused RCT, an HT
-        # cleanup pass, HT destuffing or an MQ Tier-1 pass
+        # no single PyTorch call computes a 5/3 or 9/7 level, the fused
+        # RCT, the ICT's inverse with its rounding and clip, an HT cleanup
+        # pass, HT destuffing or an MQ Tier-1 pass (library_ms None); the
+        # forward ICT's 3x3 transform is one torch.matmul
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": tpu, "launches": counts[name],
                         "max_abs_err": err[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by,
+                        "library_ms": library_ms.get(name)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """grok_tpu_torch — the PyTorch and CUDA port of grok_tpu.
 
-The port runs grok_tpu's lossless 5/3 encode and decode with its sample
-transforms (DC shift, reversible colour transform, multi-level 5/3 DWT) on
+The port runs grok_tpu's encode and decode with their sample transforms on
 an NVIDIA Hopper card, through CUDA kernels written by hand for sm_90a
-(grok_tpu_torch/csrc) that replace grok_tpu's Pallas kernels.  It imports
+(grok_tpu_torch/csrc) that replace grok_tpu's Pallas kernels and the XLA
+stages of its device pipeline: the lossless path (DC shift, reversible
+colour transform, multi-level 5/3 DWT) and the lossy one (DC shift,
+irreversible colour transform, multi-level 9/7 DWT with the quantizer).  It imports
 torch and never jax, and nothing of grok_tpu: parameters, images, markers,
 geometry, rate control and Tier-2 are the port's own copies of grok_tpu's
 host modules.  Under `backend="device"` Tier-1 runs on the card too, through

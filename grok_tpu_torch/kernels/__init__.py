@@ -18,8 +18,9 @@ from . import build
 
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("fwd53_level", "inv53_level", "rct_forward_shift",
-     "rct_inverse_unshift", "ht_encode", "ht_destuff", "ht_decode",
-     "ht_magsgn", "mq_encode", "mq_decode"), 0)
+     "rct_inverse_unshift", "fwd97_level", "inv97_level",
+     "ict_forward_shift", "ict_inverse_unshift", "ht_encode", "ht_destuff",
+     "ht_decode", "ht_magsgn", "mq_encode", "mq_decode"), 0)
 
 
 def reset_launches() -> None:
@@ -27,15 +28,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def on_card(*tensors: torch.Tensor) -> bool:
-    """True when the int32 tensors lie on one CUDA device (kernel route),
-    False when they lie on the CPU (plain route); raises otherwise."""
+def on_card(*tensors: torch.Tensor,
+            dtype: torch.dtype | None = torch.int32) -> bool:
+    """True when the tensors, all of `dtype` (None: the caller checked
+    their types), lie on one CUDA device (kernel route), False when they
+    lie on the CPU (plain route); raises otherwise."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors lie on different devices: {devices}")
     for t in tensors:
-        if t.dtype != torch.int32:
-            raise TypeError(f"expected int32 tensors, got {t.dtype}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"expected {dtype} tensors, got {t.dtype}")
     device = devices.pop()
     if device.type == "cpu":
         return False
@@ -48,10 +51,12 @@ def on_card(*tensors: torch.Tensor) -> bool:
 
 
 def launch(counter: str, entry: str, device: torch.device,
-           tensors: tuple[torch.Tensor, ...], ints: tuple[int, ...]) -> None:
+           tensors: tuple[torch.Tensor, ...], ints: tuple[int, ...],
+           floats: tuple[float, ...] = ()) -> None:
     """Launch C entry point `entry` with the tensors' pointers, then the
-    ints, on the current stream of `device`; raise on a CUDA error, and
-    count the launch under `counter`."""
+    ints, then (when given) a host array of the floats as float32, on the
+    current stream of `device`; raise on a CUDA error, and count the
+    launch under `counter`."""
     for v, ctype in zip(ints, build.int_args(entry)):
         bits = 8 * ctypes.sizeof(ctype)
         if not -2 ** (bits - 1) <= v < 2 ** (bits - 1):
@@ -60,7 +65,8 @@ def launch(counter: str, entry: str, device: torch.device,
     lib = build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        extra = ((ctypes.c_float * len(floats))(*floats),) if floats else ()
         err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *ints,
-                                  stream)
+                                  *extra, stream)
     build.check(entry, err)
     LAUNCHES[counter] += 1

@@ -34,6 +34,18 @@ _SIGNATURES = {
     "grk_rct_fwd": (_P,) * 6 + (_I, _I, _P),
     # y, cb, cr, r, g, b, count, prec, sgnd, stream
     "grk_rct_inv": (_P,) * 6 + (_I, _I, _I, _P),
+    # x, ll, hl, lh, hh, h, w, planes, consts (host float32: ALPHA, BETA,
+    # GAMMA, DELTA, K, 1/K, then the ll, hl, lh, hh steps), stream
+    "grk_fwd97_level": (_P,) * 5 + (_I,) * 3 + (_P, _P),
+    # ll, hl, lh, hh, out, h, w, planes, consts (the same, with half
+    # steps), stream
+    "grk_inv97_level": (_P,) * 5 + (_I,) * 3 + (_P, _P),
+    # planes, out, ncomp, count, shift, ict, consts (host float32: the
+    # nine ICT coefficients, the step), stream
+    "grk_ict_fwd": (_P, _P, _I, _L, _I, _I, _P, _P),
+    # x, out, ncomp, count, prec, sgnd, ict, consts (host float32: m02,
+    # m11, m12, m21 of the inverse, the half step), stream
+    "grk_ict_inv": (_P, _P, _I, _L, _I, _I, _I, _P, _P),
     # desc, enc_cwd, enc_len, pool, pool_used, meta, nblocks, pool_cap,
     # max_quads, max_qw, scup_max, stream
     "grk_ht_encode": (_P,) * 6 + (_I, _L, _I, _I, _I, _P),

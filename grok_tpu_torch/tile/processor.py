@@ -6,14 +6,17 @@ both directions: DC shift, MCT, DWT, quantization, Tier-1 (batched through
 the backend dispatch), PCRD rate allocation and Tier-2 packet assembly on
 compress; the mirror image on decompress.
 
-With a `device` set, eligible reversible tiles run their sample transforms
-on it through the port's pipeline (ops/pipeline.py, one host-to-device copy
-of the tile stack).  Every other tile takes the numpy host path here and is
-counted in HOST_PATH_TILES.  Under backend="device" the codeblocks that
-grok_tpu's device routers take are Tier-1 coded on the device too
-(t1/backend.py): HT blocks with even height and width (numbps_bound <= 25),
-and MQ blocks of style NONE or LAZY (numbps_bound <= 26, or <= 20 when
-distortions are tracked; on decode in shape groups of at least 8).  A tile
+With a `device` set, eligible tiles, reversible 5/3 or irreversible 9/7,
+run their sample transforms on it through the port's pipeline
+(ops/pipeline.py, one host-to-device copy of the tile stack); the 9/7 path
+quantizes there too, and such a tile is marked _device_quantized so that
+Tier-1 does not quantize its bands a second time.  Every other tile takes
+the numpy host path here and is counted in HOST_PATH_TILES.  Under
+backend="device" the codeblocks that grok_tpu's device routers take are
+Tier-1 coded on the device too (t1/backend.py): HT blocks with even
+height and width (numbps_bound <= 25), and MQ blocks of style NONE or LAZY
+(numbps_bound <= 26, or <= 20 when distortions are tracked; on decode in
+shape groups of at least 8).  A tile
 with such blocks ("card Tier-1", _card_t1) skips the whole-tile native
 Tier-1 calls and keeps its bands on the device: the encoders read their
 codeblocks there in place, and a band goes to the host only for the blocks
@@ -298,8 +301,8 @@ def _uniform_quant(tcp) -> bool:
 
 class TileCompressor:
     """`device` (a torch.device, or None for the host path) is where the
-    transforms of eligible reversible tiles run; `backend` is the Tier-1
-    backend (see host_backend)."""
+    transforms of eligible tiles run; `backend` is the Tier-1 backend (see
+    host_backend)."""
 
     def __init__(self, tile: Tile, tcp: TileCodingParams, image,
                  cp: CodingParams, device: torch.device | None,
@@ -318,10 +321,10 @@ class TileCompressor:
 
     def device_eligible(self) -> bool:
         """The device pipeline handles grid-aligned, unsubsampled, uniform
-        reversible tiles; everything else uses the host numpy path."""
+        tiles; everything else uses the host numpy path."""
         tile, tcp, image = self.tile, self.tcp, self.image
         t0 = tcp.tccps[0]
-        if self.device is None or t0.qmfbid != 1:
+        if self.device is None:
             return False
         nl = t0.numresolutions - 1
         align = 1 << nl
@@ -349,6 +352,7 @@ class TileCompressor:
             return
         HOST_PATH_TILES["encode"] += 1
         self._transforms_done = True
+        self._device_quantized = False
         tile, tcp, image = self.tile, self.tcp, self.image
         reversible = tcp.tccps[0].qmfbid == 1
         raw = []
@@ -426,6 +430,7 @@ class TileCompressor:
                 and t2._native is not None
                 and not card_t1
                 and t1_backend.resolve(self.backend) == "native"
+                and not getattr(self, "_device_quantized", False)
                 and not any(t.roi_shift for t in tcp.tccps)
                 and self._run_t1_tile_native_enc(need_dist)):
             self._t1_jobs = []
@@ -450,7 +455,8 @@ class TileCompressor:
                     # coefficient ingest (one pass instead of two numpy
                     # full-band passes); other backends materialize
                     delta = 0.0
-                    if not reversible:
+                    if not reversible and not getattr(
+                            self, "_device_quantized", False):
                         delta = float(band.stepsize)
                     mixed = tccp.ht and getattr(self.cp, "ht_mixed", False)
                     for prc in res.precincts:
@@ -1749,13 +1755,24 @@ def _uniform_batch(tiles, eligible) -> bool:
                and _tcp_device_key(t.tcp) == key for t in tiles)
 
 
+def _deltas(tile, reversible: bool) -> tuple:
+    """The 9/7 path's quantization steps, ((resno, orient, delta), ...),
+    from the tile's first component (_uniform_quant makes them the same
+    across components); () on the 5/3 path."""
+    if reversible:
+        return ()
+    return tuple((res.resno, band.orient, float(band.stepsize))
+                 for res in tile.comps[0].resolutions for band in res.bands)
+
+
 def _analyse(tcs: list[TileCompressor]) -> None:
     """Device analysis of a uniform batch of tiles; installs each tile
-    component's bands: device tensors for a tile with card Tier-1, host
-    int32 arrays otherwise."""
+    component's bands (quantized on the 9/7 path): device tensors for a
+    tile with card Tier-1, host int32 arrays otherwise."""
     first = tcs[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
+    reversible = first.tcp.tccps[0].qmfbid == 1
 
     def plane(t, compno):
         comp = t.image.comps[compno]
@@ -1767,8 +1784,9 @@ def _analyse(tcs: list[TileCompressor]) -> None:
                      dtype=np.int32)  # (C, B, H, W)
     bands = pipeline.analysis(
         torch.from_numpy(stack).to(first.device),
-        numres=first.tcp.tccps[0].numresolutions, reversible=True,
-        mct=first.tcp.mct, prec=comp0.prec, sgnd=comp0.sgnd)
+        numres=first.tcp.tccps[0].numresolutions, reversible=reversible,
+        mct=first.tcp.mct, prec=comp0.prec, sgnd=comp0.sgnd,
+        deltas=_deltas(first.tile, reversible))
     keep = [t.backend == "device" and _card_t1(t.tcp) for t in tcs]
     host = ({k: v.cpu().numpy() for k, v in bands.items()}
             if not all(keep) else None)
@@ -1776,6 +1794,7 @@ def _analyse(tcs: list[TileCompressor]) -> None:
         src = bands if keep[bi] else host
         for compno, tc in enumerate(t.tile.comps):
             tc.data = {k: v[compno, bi] for k, v in src.items()}
+        t._device_quantized = not reversible
         t._transforms_done = True
 
 
@@ -1792,11 +1811,12 @@ def run_transforms_device_batched(tcs: list[TileCompressor]) -> bool:
 
 def _synthesise(tds: list["TileDecompressor"]) -> list[list[np.ndarray]]:
     """Device synthesis of a uniform batch of tiles: per tile, its
-    component planes.  Bands the HT decoder wrote on the device are taken
-    as they are; host bands go up."""
+    component planes.  Bands the Tier-1 decoders wrote on the device are
+    taken as they are; host bands go up."""
     first = tds[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
+    reversible = first.tcp.tccps[0].qmfbid == 1
     bands = {}
     for res in first.tile.comps[0].resolutions:
         for band in res.bands:
@@ -1812,9 +1832,10 @@ def _synthesise(tds: list["TileDecompressor"]) -> list[list[np.ndarray]]:
             bands[key] = torch.from_numpy(stack).to(first.device)
     r = first.tile.comps[0].rect
     out = pipeline.synthesis(
-        bands, numres=first.tcp.tccps[0].numresolutions, reversible=True,
-        mct=first.tcp.mct, prec=comp0.prec, sgnd=comp0.sgnd,
-        shape=(r.h, r.w)).cpu().numpy()
+        bands, numres=first.tcp.tccps[0].numresolutions,
+        reversible=reversible, mct=first.tcp.mct, prec=comp0.prec,
+        sgnd=comp0.sgnd, shape=(r.h, r.w),
+        deltas=_deltas(first.tile, reversible)).cpu().numpy()
     return [[out[c, bi] for c in range(ncomp)] for bi in range(len(tds))]
 
 
@@ -2374,7 +2395,7 @@ class TileDecompressor:
         if self.reduce or self.window is not None:
             return False
         t0 = tcp.tccps[0]
-        if self.device is None or t0.qmfbid != 1:
+        if self.device is None:
             return False
         nl = t0.numresolutions - 1
         align = 1 << nl

@@ -176,18 +176,79 @@ def test_odd_origin_takes_host_path(rng, host_tiles):
     assert host_tiles["encode"] == 1 and host_tiles["decode"] == 1
 
 
-def test_lossy_takes_host_path(rng, host_tiles):
-    """The 9/7 path is not ported: irreversible tiles run on the host and
-    match grok_tpu's native bytes."""
-    arr = rng.integers(0, 256, size=(32, 32, 3)).astype(np.uint8)
-    img = GrkImage.from_array(arr)
-    kw = dict(numresolution=3, irreversible=True)
+def _config2(h, w):
+    """bench.py config2's content (BASELINE config 2: RGB, 9/7 + ICT,
+    rate-targeted) at h x w."""
+    rng2 = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:h, 0:w].astype(float)
+    rgb = np.stack([128 + 90 * np.sin(xx / 23) * np.cos(yy / 17),
+                    128 + 80 * np.sin(xx / 15),
+                    128 + 80 * np.cos(yy / 19)], -1)
+    return (rgb + rng2.normal(0, 3, rgb.shape)).clip(0, 255).astype(np.int32)
+
+
+@pytest.fixture
+def ref_mq_native(monkeypatch):
+    """grok_tpu's device route with its MQ Tier-1 on its native coder: its
+    device MQ coders, byte-identical to the native coder
+    (tests/test_torch_mq.py), compile for tens of seconds under JAX on the
+    CPU.  Its device transforms stay."""
+    from grok_tpu.t1 import backend as ref_backend
+
+    monkeypatch.setattr(ref_backend, "_encode_mq_device", lambda jobs: jobs)
+    monkeypatch.setattr(ref_backend, "_decode_mq_device", lambda jobs: jobs)
+
+
+# (name, image shape, CompressParams keywords, whether to decode with
+# grok_tpu's device route too: once is enough, each decode compiles)
+LOSSY_CASES = [
+    ("config2_96x80", (80, 96), dict(numresolution=5, layer_rates=[20]),
+     True),
+    ("layers", (48, 64), dict(numresolution=4, layer_rates=[40, 10, 1]),
+     False),
+    ("tiles", (128, 128), dict(numresolution=3, tile_size=(64, 64),
+                               layer_rates=[20]), False),
+]
+
+
+@pytest.mark.parametrize("name,shape,kw,jax_decode", LOSSY_CASES,
+                         ids=[c[0] for c in LOSSY_CASES])
+def test_lossy_runs_on_device_route(host_tiles, ref_mq_native, name, shape,
+                                    kw, jax_decode):
+    """The 9/7 + ICT path runs on the port's device route (its twins on
+    the CPU): the codestream equals grok_tpu's device and native routes'
+    byte for byte; the decode equals grok_tpu's native decode (the same
+    arithmetic, each operation rounded as written) and is within 1 of its
+    device decode (XLA contracts some of the jitted 9/7's multiply-adds);
+    no tile takes the host path."""
+    img = GrkImage.from_array(_config2(*shape))
+    kw = dict(irreversible=True, **kw)
     ours = _port_compress(img, **kw)
-    assert ours == grok_tpu.compress(
-        img, CompressParams(backend="native", **kw))
-    ref = grok_tpu.decompress(ours, DecompressParams(backend="native"))
-    out = _port_decompress(ours)
-    assert np.array_equal(out.to_array(), ref.to_array())
+    assert ours == grok_tpu.compress(img, CompressParams(backend="device",
+                                                         **kw))
+    assert ours == grok_tpu.compress(img, CompressParams(backend="native",
+                                                         **kw))
+    out = _port_decompress(ours).to_array()
+    assert np.array_equal(out, grok_tpu.decompress(
+        ours, DecompressParams(backend="native")).to_array())
+    if jax_decode:
+        dev = grok_tpu.decompress(ours, DecompressParams(backend="device"))
+        assert np.abs(out - dev.to_array()).max() <= 1
+    assert host_tiles == {"encode": 0, "decode": 0}
+
+
+def test_lossy_odd_origin_takes_host_path(host_tiles):
+    """A lossy tile at an odd canvas origin is not device-eligible: it takes
+    the host path, is counted, and still writes and decodes grok_tpu's
+    native bytes."""
+    img = GrkImage.from_array(_config2(50, 60), offset=(3, 5))
+    kw = dict(numresolution=3, irreversible=True, layer_rates=[20])
+    ours = _port_compress(img, **kw)
+    assert ours == grok_tpu.compress(img, CompressParams(backend="native",
+                                                         **kw))
+    assert np.array_equal(_port_decompress(ours).to_array(),
+                          grok_tpu.decompress(ours, DecompressParams(
+                              backend="native")).to_array())
     assert host_tiles == {"encode": 1, "decode": 1}
 
 

@@ -8,7 +8,8 @@ machine with an NVIDIA Hopper GPU and nvcc with
 (`--noconftest`: tests/conftest.py imports jax, which such a machine may
 not have.)  Every kernel must equal its twin bit for bit (tolerance 0:
 integer arithmetic, int32 wrap included; the HT coders byte for byte) and
-count its launches.
+count its launches; the 9/7 and ICT kernels equal their twins bit for
+bit too, float outputs compared by their bits.
 """
 
 import numpy as np
@@ -94,6 +95,116 @@ def test_pipeline_on_card_matches_cpu(gen):
     back = pipeline.synthesis({k: 2 * v for k, v in bands.items()},
                               shape=(64, 48), **kw)
     assert torch.equal(back, x)
+
+
+# ------------------------------------------------- 9/7 levels and the ICT
+
+STEPS = (0.37, 0.61, 0.59, 1.13)
+
+
+def _bits(t):
+    """A tensor's bits on the CPU: float32 as int32, so that NaN, -0.0 and
+    every last bit count."""
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _normal(gen, shape, scale):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 1024, 1024), (3, 1, 128, 128),
+                                   (2, 37, 257), (2, 1, 9), (2, 9, 1),
+                                   (1, 1, 1), (3, 130, 250)])
+def test_97_level_kernels_match_twins(gen, shape):
+    """The 9/7 level kernels, with and without steps, against their twins
+    bit for bit; the inverse from quantized (doubled) and float bands."""
+    reset_launches()
+    x = _normal(gen, shape, 600.0)
+    h, w = shape[-2:]
+    for steps in (None, STEPS):
+        bands = dwt.fwd_level(x, False, steps)
+        for b, ref in zip(bands, dwt.fwd_level_plain(x.cpu(), False, steps)):
+            assert torch.equal(_bits(b), _bits(ref))
+        back = dwt.inv_level(*bands, h, w, False, steps)
+        ref = dwt.inv_level_plain(*(b.cpu() for b in bands), h, w, False,
+                                  steps)
+        assert torch.equal(_bits(back), _bits(ref))
+    assert LAUNCHES["fwd97_level"] == 2 and LAUNCHES["inv97_level"] == 2
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 5, 37, 135])
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 37, 257])
+def test_97_level_kernels_odd_and_short(gen, h, w):
+    x = _normal(gen, (2, h, w), 300.0)
+    bands = dwt.fwd_level(x, False, STEPS)
+    want = dwt.fwd_level_plain(x.cpu(), False, STEPS)
+    for b, ref in zip(bands, want):
+        assert torch.equal(b.cpu(), ref), (h, w)
+    dbl = [2 * b + torch.sign(b) for b in bands]
+    assert torch.equal(
+        _bits(dwt.inv_level(*dbl, h, w, False, STEPS)),
+        _bits(dwt.inv_level_plain(*(b.cpu() for b in dbl), h, w, False,
+                                  STEPS)))
+
+
+@pytest.mark.parametrize("prec,sgnd", [(8, False), (12, True), (16, False),
+                                       (16, True)])
+@pytest.mark.parametrize("c,mct_", [(1, 0), (3, 0), (3, 1), (4, 1)])
+def test_ict_kernels_match_twins(gen, prec, sgnd, c, mct_):
+    reset_launches()
+    lo = -(1 << (prec - 1)) if sgnd else 0
+    x = _rand(gen, (c, 2, 37, 53), lo, lo + (1 << prec))
+    kw = dict(mct=mct_, prec=prec, sgnd=sgnd)
+    for step in (0.0, 0.73):
+        assert torch.equal(
+            _bits(mct.ict_forward_shift(x, step=step, **kw)),
+            _bits(mct.ict_forward_shift_plain(x.cpu(), step=step, **kw)))
+    y = _normal(gen, x.shape, float(1 << prec))
+    assert torch.equal(mct.ict_inverse_unshift(y, **kw).cpu(),
+                       mct.ict_inverse_unshift_plain(y.cpu(), **kw))
+    q = _rand(gen, x.shape, -(1 << prec), 1 << prec)
+    assert torch.equal(mct.ict_inverse_unshift(q, step=0.73, **kw).cpu(),
+                       mct.ict_inverse_unshift_plain(q.cpu(), step=0.73,
+                                                     **kw))
+    assert LAUNCHES["ict_forward_shift"] == 2
+    assert LAUNCHES["ict_inverse_unshift"] == 2
+
+
+def test_ict_inverse_and_quantizer_extremes(gen):
+    """NaN, infinities, huge values and ties convert as the twins (and
+    XLA) convert them: saturating, NaN to 0, ties to even."""
+    vals = torch.tensor([float("nan"), float("inf"), -float("inf"), 3e9,
+                         -3e9, 2.5, 3.5, -2.5, -0.5, 0.5, 2147483520.0,
+                         -2147483648.0, 1e-40, -1e-40, 255.5, 127.49999])
+    x = vals.repeat(4, 1, 4, 1).contiguous()
+    for prec, sgnd in ((8, False), (8, True), (16, False), (31, True)):
+        for mct_ in (0, 1):
+            kw = dict(mct=mct_, prec=prec, sgnd=sgnd)
+            assert torch.equal(mct.ict_inverse_unshift(x.cuda(), **kw).cpu(),
+                               mct.ict_inverse_unshift_plain(x, **kw))
+    big = vals.reshape(1, 4, 4) * 1e30
+    for b, ref in zip(dwt.fwd_level(big.cuda(), False, STEPS),
+                      dwt.fwd_level_plain(big, False, STEPS)):
+        assert torch.equal(b.cpu(), ref)
+
+
+@pytest.mark.parametrize("numres,c,mct_", [(5, 3, 1), (3, 4, 1), (1, 3, 1),
+                                           (2, 1, 0)])
+def test_lossy_pipeline_on_card_matches_cpu(gen, numres, c, mct_):
+    x = _rand(gen, (c, 2, 96, 80), 0, 256)
+    deltas = tuple((r, o, 0.25 * (1 + r + o)) for r in range(numres)
+                   for o in ((0,) if r == 0 else (1, 2, 3)))
+    kw = dict(numres=numres, reversible=False, mct=mct_, prec=8,
+              sgnd=False, deltas=deltas)
+    bands = pipeline.analysis(x, **kw)
+    ref = pipeline.analysis(x.cpu(), **kw)
+    for k in ref:
+        assert torch.equal(bands[k].cpu(), ref[k]), k
+    dbl = {k: 2 * v + torch.sign(v) for k, v in bands.items()}
+    back = pipeline.synthesis(dbl, shape=(96, 80), **kw)
+    assert torch.equal(back.cpu(), pipeline.synthesis(
+        {k: v.cpu() for k, v in dbl.items()}, shape=(96, 80), **kw))
 
 
 # ------------------------------------------------------------ HT Tier-1

@@ -273,7 +273,6 @@ def test_python_backend_codes_ht(rng):
 # on the device route, and the decoded blocks come back to host arrays
 HOST_TILE_CASES = [
     ("roi", dict(roi_comp=0, roi_shift=4), {}),
-    ("irreversible_97", dict(irreversible=True), {}),
     ("odd_origin", dict(image_offset=(3, 5)), {}),
     ("window", {}, dict(window=(8, 8, 40, 40))),
     ("reduce", {}, dict(reduce=1)),
@@ -302,3 +301,34 @@ def test_host_tiles_match_reference(rng, name, kw, dkw):
     want = grok_tpu.decompress(ref, grok_tpu.DecompressParams(**dkw))
     assert np.array_equal(out.to_array(), want.to_array())
     assert counts["encode_device"] > 0 and counts["decode_device"] > 0
+
+
+def test_lossy_ht_on_device_route(rng):
+    """HT 9/7 runs on the port's device route: the tile's transforms and
+    quantizer and its even HT codeblocks on the device route, no tile on
+    the host path; the codestream equals grok_tpu's device and native
+    routes' byte for byte, and the decode equals grok_tpu's native decode
+    (the same 9/7 arithmetic, each operation rounded as written)."""
+    from grok_tpu_torch.tile.processor import HOST_PATH_TILES
+
+    img = grok_tpu.GrkImage.from_array(_gray(rng, 64, 80))
+    kw = dict(ht=True, numresolution=3, irreversible=True)
+    ref = grok_tpu.compress(img, grok_tpu.CompressParams(backend="device",
+                                                         **kw))
+    assert ref == grok_tpu.compress(img, grok_tpu.CompressParams(
+        backend="native", **kw))
+    counts = t1_backend.DEVICE_CODEBLOCKS
+    for k in counts:
+        counts[k] = 0
+    for k in HOST_PATH_TILES:
+        HOST_PATH_TILES[k] = 0
+    data = grok_tpu_torch.compress(port_params.from_reference(img),
+                                   grok_tpu_torch.CompressParams(**kw),
+                                   device="cpu")
+    assert data == ref
+    out = grok_tpu_torch.decompress(data, device="cpu")
+    want = grok_tpu.decompress(ref, grok_tpu.DecompressParams(
+        backend="native"))
+    assert np.array_equal(out.to_array(), want.to_array())
+    assert counts["encode_device"] > 0 and counts["decode_device"] > 0
+    assert HOST_PATH_TILES == {"encode": 0, "decode": 0}

@@ -43,14 +43,19 @@ for arr, kw in ((rng.integers(0, 256, (64, 64, 3)).astype(np.uint8),
                                    CompressParams(**kw), device="cpu")
     out = grok_tpu_torch.decompress(data, DecompressParams(), device="cpu")
     assert np.array_equal(out.to_array(), arr)
+rgb = rng.integers(0, 256, (48, 40, 3)).astype(np.uint8)
+lossy = grok_tpu_torch.compress(
+    GrkImage.from_array(rgb), CompressParams(irreversible=True,
+                                             layer_rates=[20]), device="cpu")
+grok_tpu_torch.decompress(lossy, DecompressParams(), device="cpu")
 print(json.dumps(sorted(m for m in set(sys.modules) - before
                         if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))))
 """
 
 
 def test_port_imports_no_jax():
-    """A compress and decompress through the port (HT RGB, and MQ gray in
-    tiles) loads no jax and no grok_tpu module."""
+    """A compress and decompress through the port (HT RGB, MQ gray in
+    tiles, and lossy 9/7 RGB) loads no jax and no grok_tpu module."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -293,8 +298,16 @@ def test_cpu_runs_launch_nothing(rng):
     pipeline.synthesis({k: 2 * v for k, v in bands.items()}, numres=3,
                        reversible=True, mct=1, prec=8, sgnd=False,
                        shape=(16, 24))
+    lossy = dict(numres=3, reversible=False, mct=1, prec=8, sgnd=False,
+                 deltas=tuple((r, o, 0.5) for r in range(3)
+                              for o in ((0,) if r == 0 else (1, 2, 3))))
+    bands = pipeline.analysis(x, **lossy)
+    pipeline.synthesis({k: 2 * v for k, v in bands.items()}, shape=(16, 24),
+                       **lossy)
     assert set(LAUNCHES) == {"fwd53_level", "inv53_level",
                              "rct_forward_shift", "rct_inverse_unshift",
+                             "fwd97_level", "inv97_level",
+                             "ict_forward_shift", "ict_inverse_unshift",
                              "ht_encode", "ht_destuff", "ht_decode",
                              "ht_magsgn", "mq_encode", "mq_decode"}
     assert all(v == 0 for v in LAUNCHES.values())
@@ -312,3 +325,21 @@ def test_wrappers_check_their_input():
     with pytest.raises(ValueError, match="no kernel route"):
         mct.rct_forward_shift(*[torch.zeros((2, 2), dtype=torch.int32,
                                             device="meta")] * 3, 8, False)
+    # the 9/7 wrappers: float32 levels, int32 bands where a step is given
+    with pytest.raises(TypeError):
+        dwt.fwd_level(x.to(torch.int32), False)
+    f = dwt.fwd_level(x.to(torch.float32), False, (0.5, 0.5, 0.5, 0.5))
+    with pytest.raises(TypeError):
+        dwt.inv_level(*f, 4, 4, False)
+    with pytest.raises(ValueError, match="steps"):
+        dwt.fwd_level(x.to(torch.float32), False, (0.5, 0.5))
+    with pytest.raises(TypeError):
+        mct.ict_forward_shift(x.to(torch.float32), mct=1, prec=8,
+                              sgnd=False)
+    with pytest.raises(TypeError):
+        mct.ict_inverse_unshift(x.to(torch.float32), mct=0, prec=8,
+                                sgnd=False, step=0.5)
+    with pytest.raises(ValueError, match="no kernel route"):
+        mct.ict_forward_shift(torch.zeros((3, 2, 2), dtype=torch.int32,
+                                          device="meta"), mct=1, prec=8,
+                              sgnd=False)
