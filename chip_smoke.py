@@ -4,19 +4,24 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --mq-times PATH   # only the MQ kernels' times,
                                             # from the checkout at PATH
+    python3 chip_smoke.py --dwt97-times PATH  # only the 9/7 level kernels'
+                                              # check and times, likewise
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 a source, in parallel) and the native host coder from native/, holds each
 kernel bit-exact against its plain PyTorch twin at the shapes the lossless
 5/3 path and the lossy 9/7 path give it (the 9/7 level and ICT kernels
 bit for bit, float outputs by their bits, on config 2's level shapes, odd
-and short planes, 8-, 12- and 16-bit stacks of 1, 3 and 4 components, and
-NaN and huge inputs; the HT Tier-1 kernels byte for byte, on corrupt
+and short planes, widths of each residue mod 4 in segments of several
+chunks, misaligned tensors, 8-, 12- and 16-bit stacks of 1, 3 and 4
+components, and NaN and huge inputs; the HT Tier-1 kernels byte for byte, on corrupt
 streams and under the three CxtVLC table swaps too; the MQ Tier-1 kernels
 on grok_tpu's test shapes, distortion-tracked blocks, corrupt and truncated
 streams, the widest legal shapes and case (a)'s 70 codeblocks), times
 kernel and twin (the transform kernels at cases (b) and (d)'s level-1
-shapes, the four HT kernels on case (b)'s codeblocks, the two MQ kernels
+shapes, the 9/7 level and ICT kernels also by the device's own time,
+torch.profiler's kernel records and a CUDA graph of 16 launches, the 9/7
+levels at each of case (d)'s four level shapes and summed; the four HT kernels on case (b)'s codeblocks, the two MQ kernels
 on three launch shapes: case (c)'s 3,360 codeblocks, its tile 0 and case
 (a)'s blocks, each with a round-trip check), then drives
 grok_tpu_torch.compress / decompress with their defaults (the card) on
@@ -68,6 +73,7 @@ SEED = 20261016
 INT_MIN, INT_MAX = -(2 ** 31), 2 ** 31 - 1
 UHD = (2160, 3840)
 QUEUED = 16  # launches queued before one synchronize, for amortised times
+GRAPH_REPLAYS = 4  # replays of a CUDA graph of QUEUED launches
 # the card's peak rates (H100 SXM data sheet, at a 700 W power limit):
 # device memory, and 32-bit operations outside the tensor cores (the float32
 # rate; the integer lifting and colour sums run on the same lanes)
@@ -245,20 +251,33 @@ def bit_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return max_err(a, b)
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that starts 4 bytes past an allocation."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return out[1:].view(t.shape).copy_(t)
+
+
 def check_lossy(gen, dwt, mct):
     """The 9/7 level and ICT kernels against their twins (on the CPU),
     bit for bit: every level shape of case (d) (3 x 2048 x 2048 down to
-    256 x 256), odd and short planes, with and without steps, the inverse
-    from the forward's float and doubled-domain bands; the ICT kernels on
-    8-, 12- and 16-bit stacks, signed and unsigned, of 1, 3 and 4
-    components with and without the ICT, with and without a step, on case
-    (d)'s full stack, and on NaN, infinite, huge and tied inputs."""
+    256 x 256), odd and short planes, widths of each residue mod 4 cut into
+    segments of several chunks, misaligned tensors, with and without steps,
+    the inverse from the forward's float and doubled-domain bands; the ICT
+    kernels on 8-, 12- and 16-bit stacks, signed and unsigned, of 1, 3 and
+    4 components with and without the ICT, with and without a step, on
+    case (d)'s full stack, and on NaN, infinite, huge and tied inputs."""
     err = dict.fromkeys(("fwd97_level", "inv97_level", "ict_forward_shift",
                          "ict_inverse_unshift"), 0)
     sizes = (1, 2, 3, 37, 135, 257)
     cases = [normal(gen, (3, 1, h, w), 600.0)
              for (h, w) in level_shapes(2048, 2048, 5)]
     cases += [normal(gen, (2, h, w), 300.0) for h in sizes for w in sizes]
+    # widths 0, 1, 2 and 3 mod 4 (the 16-byte and the 4-byte variants) on
+    # planes the launch cuts into segments of two chunks, the last ragged;
+    # and misaligned (contiguous) tensors, which take the 4-byte variant
+    cases += [normal(gen, (4, 1030, w), 300.0)
+              for w in (1028, 1029, 1030, 1031)]
+    cases += [misaligned(normal(gen, (2, 130, 252), 300.0))]
     for x in cases:
         h, w = x.shape[-2:]
         for steps in (None, STEPS_97):
@@ -268,6 +287,8 @@ def check_lossy(gen, dwt, mct):
                 bit_err(b, r) for b, r in zip(bands, want)])
             if steps is not None:
                 bands = [2 * b + torch.sign(b) for b in bands]
+            if x.data_ptr() % 16:
+                bands = [misaligned(b) for b in bands]
             err["inv97_level"] = max(err["inv97_level"], bit_err(
                 dwt.inv_level(*bands, h, w, False, steps),
                 dwt.inv_level_plain(*(b.cpu() for b in bands), h, w, False,
@@ -757,6 +778,10 @@ def ptxas_lines(report: str, kernels) -> dict:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             cur = next((k for k in kernels if k in line), None)
+            if cur and "ILb1E" in line:  # a template's <true> variant
+                cur += "<true>"
+            elif cur and "ILb0E" in line:
+                cur += "<false>"
         elif cur and ("stack frame" in line or "registers" in line):
             out.setdefault(cur, []).append(
                 line.replace("ptxas info    :", "").strip())
@@ -991,6 +1016,143 @@ def time_ms(fn) -> tuple[float, float]:
     return statistics.median(single), start.elapsed_time(end) / QUEUED
 
 
+def device_ms(fn, kernel: str) -> tuple[float | None, float]:
+    """The device's own time of the launches `fn` makes of the kernel whose
+    name holds `kernel`: (the median ms of one launch in torch.profiler's
+    CUDA kernel records, None where it records none; the ms a call when a
+    CUDA graph of QUEUED calls is replayed GRAPH_REPLAYS times, CUDA
+    events), so that no host work around the launches counts."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(QUEUED):
+            fn()
+        torch.cuda.synchronize()
+    runs = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if kernel in e.name]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capturing stream, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(QUEUED):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return (statistics.median(runs) if runs else None,
+            start.elapsed_time(end) / (GRAPH_REPLAYS * QUEUED))
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def dwt97_levels(gen, dwt):
+    """Case (d)'s four 9/7 levels as the codec calls the kernels: (h, w,
+    input, steps, the inverse's bands); the high bands quantized (the
+    inverse's doubled), LL only at the coarsest level."""
+    shapes = level_shapes(2048, 2048, 5)
+    out = []
+    for i, (h, w) in enumerate(shapes):
+        x = normal(gen, (3, 1, h, w), 600.0)
+        steps = ((STEPS_97[0] if i == len(shapes) - 1 else 0.0,)
+                 + STEPS_97[1:])
+        bands = dwt.fwd_level(x, False, steps)
+        out.append((h, w, x, steps,
+                    [2 * b + torch.sign(b) if s > 0 else b
+                     for b, s in zip(bands, steps)]))
+    return out
+
+
+def time_dwt97(gen, dwt) -> dict:
+    """The 9/7 level kernels at case (d)'s four level shapes: the device's
+    own time (device_ms) beside the wrapper's CUDA-event times (time_ms,
+    per launch and amortised), each against its bound (8 B a sample over
+    the memory rate), and the sums over the codec's four launches a
+    direction.  Returns {name: (level-1 ms, the four launches' ms)}, the
+    device's times in a CUDA graph."""
+    levels = dwt97_levels(gen, dwt)
+    result = {}
+    for name in ("fwd97_level", "inv97_level"):
+        total = dict.fromkeys(("prof", "graph", "single", "amort", "bound",
+                               "bytes"), 0.0)
+        first = None
+        for h, w, x, steps, dbl in levels:
+            if name == "fwd97_level":
+                def fn(x=x, steps=steps):
+                    dwt.fwd_level(x, False, steps)
+            else:
+                def fn(dbl=dbl, h=h, w=w, steps=steps):
+                    dwt.inv_level(*dbl, h, w, False, steps)
+            single, amort = time_ms(fn)
+            prof, graph = device_ms(fn, f"{name}_kernel")
+            nbytes = 8 * x.numel()
+            bound = 1e3 * nbytes / PEAK_BYTES_S
+            log(f"time {name} device {tuple(x.shape)}: {fmt_ms(prof)} ms a "
+                f"launch (profiler), {graph:.4f} ms a launch in a CUDA graph "
+                f"of {QUEUED} ({bound / graph:.0%} of the bound); wrapper "
+                f"{single:.4f} ms per launch, {amort:.4f} ms amortised "
+                f"(CUDA events); bound {bound:.4f} ms (bytes)")
+            for key, v in (("prof", prof), ("graph", graph),
+                           ("single", single), ("amort", amort),
+                           ("bound", bound), ("bytes", nbytes)):
+                total[key] = None if v is None or total[key] is None \
+                    else total[key] + v
+            first = first or graph
+        log(f"time {name} device, case (d)'s four launches: "
+            f"{fmt_ms(total['prof'])} ms (profiler), {total['graph']:.4f} "
+            f"ms (CUDA graph); wrapper {total['single']:.4f} ms per launch, "
+            f"{total['amort']:.4f} amortised; bound {total['bound']:.4f} ms "
+            f"on {total['bytes'] / 1e6:.1f} MB")
+        result[name] = (first, total["graph"])
+    return result
+
+
+def dwt97_times_only(tree: str) -> int:
+    """`chip_smoke.py --dwt97-times TREE`: only the 9/7 level kernels, from
+    the grok_tpu_torch of the checkout at TREE (for A/B runs against
+    another tree unpacked beside this one): ptxas's lines, a bit-for-bit
+    check against the twin at level 1, and time_dwt97."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import grok_tpu_torch
+    from grok_tpu_torch.kernels import build
+    from grok_tpu_torch.ops import dwt
+
+    log(f"tree {tree}: grok_tpu_torch from "
+        f"{os.path.dirname(os.path.abspath(grok_tpu_torch.__file__))}")
+    log(run(["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"]).splitlines()[0])
+    report = build.build()
+    build.load()
+    for name, lines in ptxas_lines(report, ("fwd97_level_kernel",
+                                            "inv97_level_kernel")).items():
+        log(f"ptxas {name}: {'; '.join(lines)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h, w, x, steps, dbl = dwt97_levels(gen, dwt)[0]
+    err = max([bit_err(b, r) for b, r in zip(
+        dwt.fwd_level(x, False, steps),
+        dwt.fwd_level_plain(x.cpu(), False, steps))] + [bit_err(
+            dwt.inv_level(*dbl, h, w, False, steps),
+            dwt.inv_level_plain(*(b.cpu() for b in dbl), h, w, False,
+                                steps))])
+    log(f"9/7 levels vs twin at {tuple(x.shape)}: max abs err {err}")
+    if err:
+        raise AssertionError("the 9/7 level kernels disagree with the twins")
+    time_dwt97(gen, dwt)
+    return 0
+
+
 def time_kernels(gen, dwt, mct):
     """Kernel and twin at case (b)'s level-1 shapes, in turns (twin,
     kernel, kernel, twin); returns {name: (ms, plain_ms, bound_ms,
@@ -1040,6 +1202,10 @@ def time_kernels(gen, dwt, mct):
             f"amortised; bound {bounds[bound_by]:.4f} ms ({bound_by})")
         times[name] = (k_amort, p_amort, bounds[bound_by], bound_by)
     return times
+
+
+ICT_KERNELS = {"ict_forward_shift": "ict_fwd_kernel",
+               "ict_inverse_unshift": "ict_inv_kernel"}
 
 
 def time_lossy(gen, dwt, mct):
@@ -1104,6 +1270,11 @@ def time_lossy(gen, dwt, mct):
         times[name] = (k_amort, p_amort, bounds[bound_by], bound_by)
         if lib:
             library_ms[name] = lib[1]
+        if name in ICT_KERNELS:
+            prof, graph = device_ms(kernel, ICT_KERNELS[name])
+            log(f"time {name} device: {fmt_ms(prof)} ms a launch "
+                f"(profiler), {graph:.4f} ms a launch in a CUDA graph of "
+                f"{QUEUED}")
     return times, library_ms
 
 
@@ -1332,6 +1503,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--mq-times"]:
         return mq_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
+    if sys.argv[1:2] == ["--dwt97-times"]:
+        return dwt97_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
     import grok_tpu_torch  # noqa: F401  (fails outside a checkout)
     from grok_tpu_torch.kernels import LAUNCHES, build
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -1355,8 +1528,9 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s from "
         f"{[os.path.relpath(s) for s in build.sources()]}")
     log(report.strip())
-    for name, lines in ptxas_lines(report, ("mq_encode_kernel",
-                                            "mq_decode_kernel")).items():
+    for name, lines in ptxas_lines(report, (
+            "mq_encode_kernel", "mq_decode_kernel", "fwd97_level_kernel",
+            "inv97_level_kernel")).items():
         log(f"ptxas {name}: {'; '.join(lines)}")
     t0 = time.perf_counter()
     from grok_tpu_torch.tile import processor  # builds the native coder
@@ -1386,6 +1560,9 @@ def main() -> int:
         raise AssertionError(f"kernels disagree with their twins: {err}")
     times = time_kernels(gen, dwt, mct)
     lossy_times, library_ms = time_lossy(gen, dwt, mct)
+    # the 9/7 level kernels' rows: the device's own time at level 1
+    for name, (ms, _) in time_dwt97(gen, dwt).items():
+        lossy_times[name] = (ms,) + lossy_times[name][1:]
     times.update(lossy_times)
     uhd = make_rgb(*UHD, seed=SEED)
     times.update(time_ht(ht_population(uhd, pipeline), ht_encode, ht_decode,

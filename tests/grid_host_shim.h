@@ -2,27 +2,39 @@
 // (grok_tpu_torch/csrc/dwt97_level.cu, ict.cu) use, so that their sources
 // compile with g++ and run on the CPU in
 // tests/test_torch_dwt97_host_kernels.py.  A CTA is blockDim.x * blockDim.y
-// host threads that walk the grid's CTAs in order, a barrier between two:
-// __syncthreads is a barrier of those threads and a kernel's static
-// __shared__ array is one static array.  The float intrinsics are the plain
+// fibers (ucontext) on one host thread, and the grid's CTAs run in order: a
+// fiber runs until it reaches a barrier, __syncthreads being one of all the
+// CTA's fibers and __syncwarp one of a warp's 32, and the warp shuffles go
+// through a shared array between two warp barriers; a barrier that can
+// never complete fails the launch.  (Host threads would do the same, but
+// every barrier would wait on the OS scheduler, minutes of a test run on a
+// busy machine.)  The kernel's dynamic shared memory is one static buffer,
+// filled with NaN bytes before each CTA, so that a stored value that
+// depended on a word the CTA never wrote shows.  The cp.async primitives
+// (<cuda_pipeline.h>) are a plain copy, their commit and wait no-ops: a
+// copy is done when it is issued.  The float intrinsics are the plain
 // IEEE operations: the test compiles with -ffp-contract=off, so none is
 // fused into a multiply-add; the conversions saturate and send NaN to 0, as
 // the card's do.
 #pragma once
 
-#include <barrier>
+#include <ucontext.h>
+
+#include <bit>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
-#include <thread>
+#include <cstring>
+#include <memory>
 #include <vector>
 
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __shared__ static
-#define __launch_bounds__(n)
+#define __shared__
+#define __align__(n)
+#define __launch_bounds__(...)
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -32,23 +44,121 @@ struct dim3 {
 struct Idx {
   unsigned x = 0, y = 0, z = 0;
 };
-static thread_local Idx threadIdx;
-static thread_local Idx blockIdx;
+static Idx threadIdx;  // the running fiber's
+static Idx blockIdx;
+static unsigned g_tid;  // the running fiber's linear index in the CTA
 static dim3 gridDim, blockDim;
-static std::barrier<>* g_cta;
+static std::vector<uint32_t> g_lanes;  // a word a thread, for shuffles
+
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool blocked = false, done = false;
+};
+struct Barrier {
+  unsigned need = 0, arrived = 0;
+  std::vector<Fiber*> waiting;
+};
+static std::vector<Fiber> g_fibers;
+static Fiber* g_cur;
+static ucontext_t g_scheduler;
+static Barrier g_cta;
+static std::vector<Barrier> g_warps;
+static void (*g_call)(void*);  // the kernel launch the fibers run
+static void* g_arg;
+
+// The running fiber arrives at `b`: the last to arrive releases the others
+// and goes on; the others wait for it.
+static inline void arrive(Barrier& b) {
+  if (++b.arrived == b.need) {
+    for (Fiber* f : b.waiting) f->blocked = false;
+    b.waiting.clear();
+    b.arrived = 0;
+    return;
+  }
+  g_cur->blocked = true;
+  b.waiting.push_back(g_cur);
+  swapcontext(&g_cur->ctx, &g_scheduler);
+}
+
+namespace {
+// the kernels' dynamic shared memory (`extern __shared__ float smem[]`)
+alignas(16) float smem[232448 / 4];
+}  // namespace
 
 using cudaError_t = int;
 using cudaStream_t = void*;
 constexpr cudaError_t cudaSuccess = 0;
 constexpr cudaError_t cudaErrorInvalidValue = 1;
 
-static inline void __syncthreads() { g_cta->arrive_and_wait(); }
+// The runtime queries of a launcher's planning: there is no device here,
+// and the tests' launchers plan for a capacity they choose.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum cudaFuncAttribute { cudaFuncAttributePreferredSharedMemoryCarveout };
+constexpr int cudaSharedmemCarveoutMaxShared = 100;
+static inline cudaError_t cudaGetDevice(int*) { return cudaErrorInvalidValue; }
+static inline cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int) {
+  return cudaErrorInvalidValue;
+}
+static inline cudaError_t cudaFuncSetAttribute(const void*,
+                                               cudaFuncAttribute, int) {
+  return cudaErrorInvalidValue;
+}
+static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int*, const void*, int, size_t) {
+  return cudaErrorInvalidValue;
+}
+
+struct alignas(8) float2 {
+  float x, y;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(8) int2 {
+  int x, y;
+};
+static inline float2 make_float2(float x, float y) { return {x, y}; }
+static inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+static inline int2 make_int2(int x, int y) { return {x, y}; }
+
+static inline void __syncthreads() { arrive(g_cta); }
+static inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
+  arrive(g_warps[g_tid / 32]);
+}
+
+// lane `src` of this thread's warp's v, or the thread's own v when `src`
+// lies outside the warp (as __shfl_up_sync / __shfl_down_sync give it)
+static inline float shuffle(float v, int src) {
+  const unsigned base = g_tid / 32 * 32;
+  g_lanes[g_tid] = std::bit_cast<uint32_t>(v);
+  __syncwarp();
+  const uint32_t r = g_lanes[src >= 0 && src < 32 ? base + src : g_tid];
+  __syncwarp();
+  return std::bit_cast<float>(r);
+}
+static inline float __shfl_up_sync(unsigned, float v, unsigned d) {
+  return shuffle(v, static_cast<int>(g_tid % 32) - static_cast<int>(d));
+}
+static inline float __shfl_down_sync(unsigned, float v, unsigned d) {
+  return shuffle(v, static_cast<int>(g_tid % 32 + d));
+}
+
+static inline void __pipeline_memcpy_async(void* dst, const void* src,
+                                           size_t bytes) {
+  std::memcpy(dst, src, bytes);
+}
+static inline void __pipeline_commit() {}
+static inline void __pipeline_wait_prior(size_t) {}
 
 static inline float __fadd_rn(float a, float b) { return a + b; }
 static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fdiv_rn(float a, float b) { return a / b; }
 static inline float __int2float_rn(int v) { return static_cast<float>(v); }
+static inline float __int_as_float(int v) { return std::bit_cast<float>(v); }
 
 static inline int saturate(float v) {
   if (std::isnan(v)) return 0;
@@ -61,28 +171,59 @@ static inline int __float2int_rn(float v) {
   return saturate(std::nearbyint(v));  // to nearest, ties to even
 }
 
-// Run `kernel` on `grid` CTAs of `block` threads.
 template <class F>
-static void run_grid(dim3 grid, dim3 block, F kernel) {
+static void call(void* kernel) {
+  (*static_cast<F*>(kernel))();
+}
+static void fiber_main() {
+  g_call(g_arg);
+  g_cur->done = true;  // and back to the scheduler (uc_link)
+}
+
+// Run `kernel` on `grid` CTAs of `block` threads; 0, or 1 when a CTA's
+// fibers all wait on barriers that cannot complete.
+template <class F>
+static int run_grid(dim3 grid, dim3 block, F kernel) {
+  constexpr size_t kStack = 1 << 16;
   const unsigned n = block.x * block.y;
-  std::barrier<> cta(n);
-  g_cta = &cta;
+  g_call = &call<F>;
+  g_arg = &kernel;
+  g_fibers = std::vector<Fiber>(n);
+  for (Fiber& f : g_fibers) f.stack.reset(new char[kStack]);
+  g_cta = Barrier{n};
+  g_warps.assign((n + 31) / 32, Barrier{});
+  for (unsigned w = 0; w < g_warps.size(); ++w)
+    g_warps[w].need = n - 32 * w < 32 ? n - 32 * w : 32;
+  g_lanes.assign(n, 0);
   gridDim = grid;
   blockDim = block;
-  std::vector<std::thread> threads;
-  for (unsigned t = 0; t < n; ++t)
-    threads.emplace_back([&, t] {
-      threadIdx.x = t % block.x;
-      threadIdx.y = t / block.x;
-      for (unsigned z = 0; z < grid.z; ++z)
-        for (unsigned y = 0; y < grid.y; ++y)
-          for (unsigned x = 0; x < grid.x; ++x) {
-            blockIdx.x = x;
-            blockIdx.y = y;
-            blockIdx.z = z;
-            kernel();
-            cta.arrive_and_wait();  // the CTA's shared array is free again
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = {x, y, z};
+        std::memset(smem, 0xFF, sizeof smem);
+        for (Fiber& f : g_fibers) {
+          f.blocked = f.done = false;
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = f.stack.get();
+          f.ctx.uc_stack.ss_size = kStack;
+          f.ctx.uc_link = &g_scheduler;
+          makecontext(&f.ctx, fiber_main, 0);
+        }
+        for (unsigned left = n; left > 0;) {
+          bool ran = false;
+          for (unsigned t = 0; t < n; ++t) {
+            Fiber& f = g_fibers[t];
+            if (f.done || f.blocked) continue;
+            g_cur = &f;
+            g_tid = t;
+            threadIdx = {t % block.x, t / block.x, 0};
+            swapcontext(&g_scheduler, &f.ctx);
+            ran = true;
+            left -= f.done;
           }
-    });
-  for (auto& t : threads) t.join();
+          if (!ran) return 1;
+        }
+      }
+  return 0;
 }

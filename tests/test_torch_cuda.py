@@ -115,10 +115,15 @@ def _normal(gen, shape, scale):
 
 @pytest.mark.parametrize("shape", [(3, 1, 1024, 1024), (3, 1, 128, 128),
                                    (2, 37, 257), (2, 1, 9), (2, 9, 1),
-                                   (1, 1, 1), (3, 130, 250)])
+                                   (1, 1, 1), (3, 130, 250),
+                                   (4, 1030, 1028), (4, 1030, 1029),
+                                   (4, 1030, 1030), (4, 1030, 1031)])
 def test_97_level_kernels_match_twins(gen, shape):
     """The 9/7 level kernels, with and without steps, against their twins
-    bit for bit; the inverse from quantized (doubled) and float bands."""
+    bit for bit; the inverse from quantized (doubled) and float bands.
+    (4, 1030, w): widths of each residue mod 4 (the 16-byte and 4-byte
+    variants) on planes cut into segments of two chunks, the last
+    ragged."""
     reset_launches()
     x = _normal(gen, shape, 600.0)
     h, w = shape[-2:]
@@ -131,6 +136,27 @@ def test_97_level_kernels_match_twins(gen, shape):
                                   steps)
         assert torch.equal(_bits(back), _bits(ref))
     assert LAUNCHES["fwd97_level"] == 2 and LAUNCHES["inv97_level"] == 2
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts 4 bytes past an allocation."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return out[1:].view(t.shape).copy_(t)
+
+
+def test_97_level_kernels_misaligned(gen):
+    """Tensors 4 bytes off their allocation, width 0 mod 4: the launchers
+    take the 4-byte variant."""
+    x = _misaligned(_normal(gen, (2, 130, 252), 300.0))
+    assert x.data_ptr() % 16
+    bands = dwt.fwd_level(x, False, STEPS)
+    for b, ref in zip(bands, dwt.fwd_level_plain(x.cpu(), False, STEPS)):
+        assert torch.equal(b.cpu(), ref)
+    dbl = [_misaligned(2 * b + torch.sign(b)) for b in bands]
+    assert torch.equal(
+        _bits(dwt.inv_level(*dbl, 130, 252, False, STEPS)),
+        _bits(dwt.inv_level_plain(*(b.cpu() for b in dbl), 130, 252, False,
+                                  STEPS)))
 
 
 @pytest.mark.parametrize("h", [1, 2, 3, 5, 37, 135])

@@ -2,12 +2,15 @@
 twins.
 
 grok_tpu_torch/csrc/dwt97_level.cu and ict.cu are compiled with g++ under
-tests/grid_host_shim.h (a CTA as host threads, __syncthreads a barrier, the
-float intrinsics as plain IEEE operations under -ffp-contract=off, the
-conversions saturating), with the `extern "C"` launchers replaced by ones
-that run the grid, fed the constants the wrappers pass, and held bit for
-bit to the plain twins: bands, steps, odd and short sizes, several CTAs a
-plane, ICT stacks of 1, 3 and 4 components, extremes and NaN.  This checks
+tests/grid_host_shim.h (a CTA as fibers on one host thread, __syncthreads,
+__syncwarp and the shuffles as barriers, cp.async a copy, shared memory
+NaN-filled before each CTA, the float intrinsics as plain IEEE operations
+under -ffp-contract=off, the conversions saturating), with the `extern
+"C"` launchers replaced by ones that run the grid for a chosen number of
+resident CTAs and a chosen variant, fed the constants the wrappers pass,
+and held bit for bit to the plain twins: bands, steps, odd and short
+sizes, strips, segments and chunks, both variants, ICT stacks of 1, 3 and
+4 components, extremes and NaN.  This checks
 the kernels' logic where there is no card; their build for sm_90a and their
 speed show only on one (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -32,25 +35,32 @@ _LAUNCHERS = {
     "dwt97_level.cu": '''
 extern "C" int host_fwd97(const void* x, void* ll, void* hl, void* lh,
                           void* hh, int h, int w, int planes,
-                          const float* consts) {
-  dim3 grid;
-  if (grid_for(h, w, planes, &grid) != cudaSuccess) return 1;
+                          const float* consts, int capacity, int vec) {
+  Plan p;
+  unsigned ctas;
+  if (plan_for(h, w, planes, capacity, &p, &ctas) != cudaSuccess) return 1;
   const Consts c = consts_from(consts);
-  run_grid(grid, dim3(32, kWarps), [&] {
-    fwd97_level_kernel((const float*)x, ll, hl, lh, hh, h, w, c);
+  return run_grid(dim3(ctas), dim3(kThreads), [&] {
+    if (vec)
+      fwd97_level_kernel<true>((const float*)x, ll, hl, lh, hh, h, w, p, c);
+    else
+      fwd97_level_kernel<false>((const float*)x, ll, hl, lh, hh, h, w, p, c);
   });
-  return 0;
 }
 extern "C" int host_inv97(const void* ll, const void* hl, const void* lh,
                           const void* hh, void* out, int h, int w,
-                          int planes, const float* consts) {
-  dim3 grid;
-  if (grid_for(h, w, planes, &grid) != cudaSuccess) return 1;
+                          int planes, const float* consts, int capacity,
+                          int vec) {
+  Plan p;
+  unsigned ctas;
+  if (plan_for(h, w, planes, capacity, &p, &ctas) != cudaSuccess) return 1;
   const Consts c = consts_from(consts);
-  run_grid(grid, dim3(32, kWarps), [&] {
-    inv97_level_kernel(ll, hl, lh, hh, (float*)out, h, w, c);
+  return run_grid(dim3(ctas), dim3(kThreads), [&] {
+    if (vec)
+      inv97_level_kernel<true>(ll, hl, lh, hh, (float*)out, h, w, p, c);
+    else
+      inv97_level_kernel<false>(ll, hl, lh, hh, (float*)out, h, w, p, c);
   });
-  return 0;
 }
 ''',
     "ict.cu": '''
@@ -62,10 +72,9 @@ extern "C" int host_ict_fwd(const void* x, void* out, int ncomp,
   FwdConsts c;
   for (int i = 0; i < 9; ++i) c.m[i] = consts[i];
   c.step = consts[9];
-  run_grid(dim3(blocks < 4 ? blocks : 4), dim3(kThreads), [&] {
+  return run_grid(dim3(blocks < 4 ? blocks : 4), dim3(kThreads), [&] {
     ict_fwd_kernel((const int32_t*)x, out, ncomp, count, shift, ict, c);
   });
-  return 0;
 }
 extern "C" int host_ict_inv(const void* x, void* out, int ncomp,
                             long long count, int prec, int sgnd, int ict,
@@ -77,16 +86,15 @@ extern "C" int host_ict_inv(const void* x, void* out, int ncomp,
   const int32_t lo = sgnd ? (int32_t)-half : 0;
   const int32_t hi = (int32_t)(sgnd ? half - 1 : 2 * half - 1);
   InvConsts c{consts[0], consts[1], consts[2], consts[3], consts[4]};
-  run_grid(dim3(blocks < 4 ? blocks : 4), dim3(kThreads), [&] {
+  return run_grid(dim3(blocks < 4 ? blocks : 4), dim3(kThreads), [&] {
     ict_inv_kernel(x, (int32_t*)out, ncomp, count, shift, lo, hi, ict, c);
   });
-  return 0;
 }
 ''',
 }
 _SIGS = {
-    "host_fwd97": (_P,) * 5 + (_I,) * 3 + (_P,),
-    "host_inv97": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "host_fwd97": (_P,) * 5 + (_I,) * 3 + (_P, _I, _I),
+    "host_inv97": (_P,) * 5 + (_I,) * 3 + (_P, _I, _I),
     "host_ict_fwd": (_P, _P, _I, _L, _I, _I, _P),
     "host_ict_inv": (_P, _P, _I, _L, _I, _I, _I, _P),
 }
@@ -99,7 +107,8 @@ def kernels(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("dwt97_host_kernels")
-    (out / "cuda_runtime.h").write_text("")
+    for header in ("cuda_runtime.h", "cuda_pipeline.h"):
+        (out / header).write_text("")
     fns = {}
     for src, launcher in _LAUNCHERS.items():
         text = open(os.path.join(CSRC, src)).read()
@@ -137,24 +146,34 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def _fwd(kernels, x, steps):
+# CTAs resident at once on the card the kernels are planned for (132 SMs,
+# 5 CTAs each): small planes get one chunk a segment, as there
+CARD = 660
+
+
+def _fwd(kernels, x, steps, capacity=CARD, vec=None):
+    """The forward level kernel; `vec` picks the variant (default: the
+    launcher's choice, 16-byte copies when the width is a multiple of 4),
+    `capacity` the resident CTAs the launch is planned for."""
     *lead, h, w = x.shape
     bands = [torch.empty(s, dtype=dwt._band_dtype(st))
              for s, st in zip(dwt._band_shapes(lead, h, w), steps)]
     consts = dwt._LIFT_CONSTS + tuple(f32(s) for s in steps)
     assert kernels["host_fwd97"](
         x.data_ptr(), *(b.data_ptr() for b in bands), h, w,
-        int(np.prod(lead)), _floats(consts)) == 0
+        int(np.prod(lead)), _floats(consts), capacity,
+        int(w % 4 == 0 if vec is None else vec)) == 0
     return bands
 
 
-def _inv(kernels, bands, h, w, steps):
+def _inv(kernels, bands, h, w, steps, capacity=CARD, vec=None):
     out = torch.empty((*bands[0].shape[:-2], h, w), dtype=torch.float32)
     consts = dwt._LIFT_CONSTS + tuple(f32(0.5 * s) if s > 0 else 0.0
                                       for s in steps)
     assert kernels["host_inv97"](
         *(b.data_ptr() for b in bands), out.data_ptr(), h, w,
-        int(np.prod(bands[0].shape[:-2])), _floats(consts)) == 0
+        int(np.prod(bands[0].shape[:-2])), _floats(consts), capacity,
+        int(w % 4 == 0 if vec is None else vec)) == 0
     return out
 
 
@@ -184,20 +203,35 @@ def test_level_kernels_match_twins(kernels, h):
                            dwt.inv_level_plain(*fl, h, w, False))
 
 
-@pytest.mark.parametrize("shape", [(1, 130, 250), (3, 61, 125)])
-def test_level_kernels_across_ctas(kernels, shape):
-    """Planes of several CTAs each way (28 x 60 pairs a CTA), LL quantized
-    too, as at a tile's coarsest level."""
-    rng = np.random.default_rng(shape[1])
+@pytest.mark.parametrize("shape,capacity,vec", [
+    ((1, 130, 250), CARD, None), ((3, 61, 125), CARD, None),
+    # capacity 1: one CTA a strip, walking every chunk down it, the last
+    # ragged; the 16-byte variant (width 0 mod 4) and the 4-byte one on
+    # the same plane
+    ((2, 101, 252), 1, None), ((2, 101, 252), 1, False),
+    # capacity 4: two segments of several chunks a strip, chunk and segment
+    # boundaries inside every strip; widths 1, 2 and 3 mod 4
+    ((1, 170, 129), 4, None), ((1, 170, 254), 4, None),
+    ((1, 170, 131), 4, None),
+    # a 2048-wide row: 18 strips, the last 4 pairs wide
+    ((1, 6, 2048), CARD, None)])
+def test_level_kernels_across_ctas(kernels, shape, capacity, vec):
+    """Planes of several CTAs each way (strips of 60 pairs, segments of
+    chunks of pair rows), LL quantized too, as at a tile's coarsest level;
+    the inverse from doubled and from float bands."""
+    rng = np.random.default_rng(shape[1] + shape[2])
     x = torch.from_numpy(rng.normal(0, 900, shape).astype(np.float32))
     h, w = shape[-2:]
-    got = _fwd(kernels, x, STEPS)
+    got = _fwd(kernels, x, STEPS, capacity, vec)
     want = dwt.fwd_level_plain(x, False, STEPS)
     for g, r in zip(got, want):
         assert _bits_equal(g, r)
     dbl = [2 * b - torch.sign(b) for b in want]
-    assert _bits_equal(_inv(kernels, dbl, h, w, STEPS),
+    assert _bits_equal(_inv(kernels, dbl, h, w, STEPS, capacity, vec),
                        dwt.inv_level_plain(*dbl, h, w, False, STEPS))
+    fl = dwt.fwd_level_plain(x, False)
+    assert _bits_equal(_inv(kernels, fl, h, w, (0.0,) * 4, capacity, vec),
+                       dwt.inv_level_plain(*fl, h, w, False))
 
 
 def _ict_fwd(kernels, planes, ict, prec, sgnd, step):
