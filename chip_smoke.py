@@ -6,6 +6,8 @@
                                             # from the checkout at PATH
     python3 chip_smoke.py --dwt97-times PATH  # only the 9/7 level kernels'
                                               # check and times, likewise
+    python3 chip_smoke.py --gigapixel       # only the BASELINE config 5
+                                            # run (cell (e))
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 a source, in parallel) and the native host coder from native/, holds each
@@ -48,8 +50,29 @@ of its own; a multi-layer variant of (c) (layer_rates [40, 10, 1], the
 distortion-tracking path) is held to the host route.  Case (d) is lossy:
 instead of an exact decode it must meet its 20:1 rate, its round trip's
 PSNR must be within 0.1 dB of the host route's, and the card's decode of
-the host route's codestream within 1 of the host route's own decode.  No
-jax and no grok_tpu module may load.
+the host route's codestream within 1 of the host route's own decode.
+
+Then two phases drive the port's other entry points.  `cli`: BASELINE
+config 1 through the command-line tools in process with their defaults
+(the card): the 512x512 gray image as PGM through grk_compress and
+grk_decompress (the codestream equal to compress on the card and on the
+host route, the decode to the input, MQ blocks coded on the card, no tile
+on the host path), case (c)'s image as PPM in 512x512 tiles with and
+without --stream-strips (byte-identical files, then decoded through the
+strip writer to the input), grk_dump, and --profile writing a trace that
+names the port's kernels (run before the kernel checks, ahead of every
+other profiler session).  `gigapixel`: BASELINE config 5 with
+tests/test_gigapixel.py's settings (32768x32768 8-bit gray, HT, 6
+resolutions, 1024x1024 tiles, TLM and PLT), in a process of its own
+started before the kernel checks: the whole image made a strip at a time
+and written by compress_strips_file, the mmapped file decoded a tile row
+at a time with every strip exact (deferred synthesis on the card, no tile
+on the host path) and through a 512x512 window across tile seams, with
+its peak RSS under 6 GB and its peak card memory under 4 GB; after the
+cli phase, a part of it (4096 x 8192) coded by compress_strips and
+compress on the card and by the host route to one codestream, its
+strip_height=300 decode equal to its whole decode.  No jax, no grok_tpu
+and no Pillow module may load.
 Every phase raises on failure.  The last two lines are one JSON object with
 the kernels' launches, errors, times and bounds, and the ok line.  Exits
 nonzero, printing neither, when no CUDA device is present.
@@ -63,6 +86,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -1496,6 +1520,363 @@ def stage_breakdown(arr):
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------------- the CLI and strips
+
+PORT_KERNELS = ("fwd53_level_kernel", "inv53_level_kernel", "rct_fwd_kernel",
+                "rct_inv_kernel", "fwd97_level_kernel", "inv97_level_kernel",
+                "ict_fwd_kernel", "ict_inv_kernel", "ht_encode_kernel",
+                "ht_destuff_kernel", "ht_decode_kernel", "ht_magsgn_kernel",
+                "mq_encode_kernel", "mq_decode_kernel")
+
+
+def write_pnm(path: str, arr: np.ndarray) -> None:
+    """8-bit binary PGM (h, w) or PPM (h, w, 3), without Pillow."""
+    magic = b"P6" if arr.ndim == 3 else b"P5"
+    with open(path, "wb") as f:
+        f.write(magic + f"\n{arr.shape[1]} {arr.shape[0]}\n255\n".encode())
+        f.write(np.ascontiguousarray(arr, dtype=np.uint8).tobytes())
+
+
+def reset_counts() -> None:
+    from grok_tpu_torch.kernels import reset_launches
+    from grok_tpu_torch.t1.backend import DEVICE_CODEBLOCKS
+    from grok_tpu_torch.tile.processor import HOST_PATH_TILES
+
+    reset_launches()
+    for counts in (HOST_PATH_TILES, DEVICE_CODEBLOCKS):
+        for k in counts:
+            counts[k] = 0
+
+
+def trace_kernels(trace_dir: str) -> Counter:
+    """The port's kernels among the device kernel records of the
+    torch.profiler Chrome traces in trace_dir."""
+    names = Counter()
+    for f in os.listdir(trace_dir):
+        with open(os.path.join(trace_dir, f)) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                for k in PORT_KERNELS:
+                    if k in ev.get("name", ""):
+                        names[k] += 1
+    return names
+
+
+def cli_phase(card_note: str, gray: np.ndarray, rgb_c: np.ndarray,
+              tmp: str) -> None:
+    """BASELINE config 1 through the port's command-line tools, called in
+    process with their default flags (the card): (i) the 512x512 gray
+    image as PGM, encoded and decoded, its codestream the library's on the
+    card and on the host route, its decode the input, its MQ blocks coded
+    on the card and no tile on the host path; (ii) case (c)'s RGB image as
+    PPM in 512x512 tiles, streamed (--stream-strips) and whole, the two
+    files byte-identical, then decoded through the strip writer; (iii)
+    grk_dump.  (iv) is cli_profile_check, run first."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, GrkImage
+    from grok_tpu_torch.cli import grk_compress, grk_decompress, grk_dump
+    from grok_tpu_torch.kernels import LAUNCHES
+    from grok_tpu_torch.t1.backend import DEVICE_CODEBLOCKS
+    from grok_tpu_torch.tile.processor import HOST_PATH_TILES
+
+    def call(tool, argv):
+        t = time.perf_counter()
+        rc = tool.main(argv)
+        if rc != 0:
+            raise AssertionError(f"cli: {tool.__name__} {argv} exited {rc}")
+        return time.perf_counter() - t
+
+    pgm, j2k, back = (os.path.join(tmp, f) for f in
+                      ("gray.pgm", "gray.j2k", "back.pgm"))
+    write_pnm(pgm, gray)
+    reset_counts()
+    enc_s = call(grk_compress, ["-i", pgm, "-o", j2k])
+    dec_s = call(grk_decompress, ["-i", j2k, "-o", back])
+    blocks, host_tiles = dict(DEVICE_CODEBLOCKS), dict(HOST_PATH_TILES)
+    counts = dict(LAUNCHES)
+    with open(j2k, "rb") as f:
+        data = f.read()
+    img = GrkImage.from_array(gray)
+    for route, kw in (("card", {}), ("host route", dict(backend="native"))):
+        if grok_tpu_torch.compress(img, CompressParams(**kw)) != data:
+            raise AssertionError(f"cli (i): grk_compress's codestream "
+                                 f"differs from compress on the {route}")
+    with open(pgm, "rb") as a, open(back, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("cli (i): the decoded PGM differs from "
+                                 "the input")
+    if not (blocks["mq_encode_device"] and blocks["mq_decode_device"]):
+        raise AssertionError(f"cli (i): no MQ blocks on the card: {blocks}")
+    if any(host_tiles.values()):
+        raise AssertionError(f"cli (i): host-path tiles {host_tiles}")
+    log(f"cli (i) config-1 512x512 PGM: grk_compress {enc_s * 1e3:.1f} ms, "
+        f"grk_decompress {dec_s * 1e3:.1f} ms (first calls), {len(data)} B "
+        f"identical to compress on the card and on the host route, decode "
+        f"identical to the input; MQ blocks on the card "
+        f"{blocks['mq_encode_device']} / {blocks['mq_decode_device']}, "
+        f"launches {counts}; {card_note}")
+
+    ppm, streamed, whole, back_ppm = (
+        os.path.join(tmp, f) for f in
+        ("c.ppm", "c-streamed.j2k", "c-whole.j2k", "c-back.ppm"))
+    write_pnm(ppm, rgb_c)
+    reset_counts()
+    st_s = call(grk_compress, ["-i", ppm, "-o", streamed, "-t", "512,512",
+                               "--stream-strips"])
+    wh_s = call(grk_compress, ["-i", ppm, "-o", whole, "-t", "512,512"])
+    dc_s = call(grk_decompress, ["-i", streamed, "-o", back_ppm])
+    counts = dict(LAUNCHES)
+    with open(streamed, "rb") as a, open(whole, "rb") as b:
+        size = len(a.read())
+        a.seek(0)
+        if a.read() != b.read():
+            raise AssertionError("cli (ii): --stream-strips wrote other "
+                                 "bytes than the whole-image encode")
+    with open(ppm, "rb") as a, open(back_ppm, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("cli (ii): the strip-written PPM differs "
+                                 "from the input")
+    missing = [k for k in ("rct_forward_shift", "rct_inverse_unshift",
+                           "fwd53_level", "inv53_level", "mq_encode",
+                           "mq_decode") if not counts[k]]
+    if missing or any(HOST_PATH_TILES.values()):
+        raise AssertionError(f"cli (ii): no launches of {missing}, or "
+                             f"host-path tiles {dict(HOST_PATH_TILES)}")
+    log(f"cli (ii) case (c) 2048x2048 PPM, 512x512 tiles: --stream-strips "
+        f"{st_s * 1e3:.1f} ms, whole {wh_s * 1e3:.1f} ms, {size} B "
+        f"identical; strip-written decode {dc_s * 1e3:.1f} ms, identical to "
+        f"the input; launches {counts}; {card_note}")
+
+    call(grk_dump, ["-i", j2k, "-o", os.path.join(tmp, "dump.txt")])
+    log("cli (iii) grk_dump exited 0")
+
+
+def cli_profile_check(gray: np.ndarray) -> None:
+    """The cli phase's (iv): grk_compress --profile DIR on the 512x512
+    gray PGM writes a Chrome trace whose device kernel records name the
+    port's kernels.  Run before any other torch.profiler session of the
+    process: after the kernel timings' sessions (CUDA activity only, CUDA
+    graphs) a new session's trace held no kernel records on the H100."""
+    from grok_tpu_torch.cli import grk_compress
+
+    with tempfile.TemporaryDirectory(prefix="grk_prof_") as tmp:
+        pgm, prof = os.path.join(tmp, "gray.pgm"), os.path.join(tmp, "prof")
+        write_pnm(pgm, gray)
+        rc = grk_compress.main(["-i", pgm, "-o", os.path.join(tmp, "p.j2k"),
+                                "--profile", prof])
+        named = trace_kernels(prof)
+    if rc != 0 or not named:
+        raise AssertionError(f"cli (iv): grk_compress --profile exited {rc}; "
+                             f"the trace names none of the port's kernels")
+    log(f"cli (iv) --profile trace kernel records: {dict(named)}")
+
+
+GIGA_N = 32768  # BASELINE config 5: 32768^2 = 1.074 GP, 8-bit gray
+GIGA_TILE = 1024
+
+
+def giga_content(y0: int, y1: int, n: int = GIGA_N) -> np.ndarray:
+    """tests/test_gigapixel.py's rows [y0, y1): smooth texture and
+    structure, regenerated a strip at a time.  The same values as the
+    test's int64 formula (every term fits int32 below 2^16 a side),
+    made 64 rows at a time so that no temporary outgrows 8 MB."""
+    out = np.empty((y1 - y0, n), np.int32)
+    x = np.arange(n, dtype=np.int32)[None, :]
+    for r in range(y0, y1, 64):
+        y = np.arange(r, min(r + 64, y1), dtype=np.int32)[:, None]
+        out[r - y0:r - y0 + y.shape[0]] = (
+            ((x * 7 + y * 13) >> 5) ^ ((x >> 8) * (y >> 8))) & 0xFF
+    return out
+
+
+def rss_gb() -> tuple[float, float]:
+    """This process's resident set now (/proc/self/statm) and at its peak
+    (getrusage), GB."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return now / 1e9, resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def giga_params(**kw):
+    from grok_tpu_torch import CompressParams
+
+    return CompressParams(numresolution=6, tile_size=(GIGA_TILE, GIGA_TILE),
+                          ht=True, tlm=True, plt=True, **kw)
+
+
+def giga_meta(h: int, w: int):
+    from grok_tpu_torch import GrkImage
+    from grok_tpu_torch.image import ImageComponent
+
+    meta = GrkImage(x0=0, y0=0, x1=w, y1=h)
+    meta.comps.append(ImageComponent(prec=8, w=w, h=h))
+    return meta
+
+
+def giga_part_checks(card_note: str) -> None:
+    """The byte check on a part of config 5's image, its first 4096 rows
+    at 8192 wide (32 tiles): compress_strips on the card, compress on the
+    card and on the host route give one codestream, which decodes to the
+    part, and a strip_height=300 decode equals the whole decode."""
+    import grok_tpu_torch
+    from grok_tpu_torch import DecompressParams, GrkImage
+
+    h, w = 4096, 8192
+    part = giga_content(0, h, w)
+    t = time.perf_counter()
+    strips = grok_tpu_torch.compress_strips(
+        giga_meta(h, w), lambda y0, n: [part[y0:y0 + n]], giga_params())
+    strips_s = time.perf_counter() - t
+    whole = grok_tpu_torch.compress(GrkImage.from_array(part), giga_params())
+    host = grok_tpu_torch.compress(GrkImage.from_array(part),
+                                   giga_params(backend="native"))
+    if not strips == whole == host:
+        raise AssertionError("gigapixel part: compress_strips, compress and "
+                             "the host route disagree")
+    full = grok_tpu_torch.decompress(strips).comps[0].data
+    if not np.array_equal(full, part):
+        raise AssertionError("gigapixel part: decode is not bit-exact")
+    t = time.perf_counter()
+    rows = 0
+    for y0, planes in grok_tpu_torch.decompress_strips(
+            strips, DecompressParams(), strip_height=300):
+        if not np.array_equal(planes[0], full[y0:y0 + planes[0].shape[0]]):
+            raise AssertionError(f"gigapixel part: strip at {y0} differs "
+                                 "from the whole decode")
+        rows += planes[0].shape[0]
+    if rows != h:
+        raise AssertionError(f"gigapixel part: strips gave {rows} rows")
+    log(f"gigapixel part {h}x{w}: {len(strips)} B identical from "
+        f"compress_strips ({strips_s * 1e3:.1f} ms), compress on the card and "
+        f"the host route, decode exact; strip_height=300 decode "
+        f"{(time.perf_counter() - t) * 1e3:.1f} ms equals the whole decode; "
+        f"{card_note}")
+
+
+def gigapixel_phase(card_note: str) -> None:
+    """BASELINE config 5 with tests/test_gigapixel.py's settings on the
+    card: a GIGA_N-square 8-bit gray image, made a strip at a time, HT, 6
+    resolutions, 1024x1024 tiles, TLM and PLT, encoded with
+    compress_strips_file to a file; the mmapped file decoded a tile row at
+    a time (deferred synthesis on the card, every strip exact) and through
+    a 512x512 window across tile seams (exact).  Peak RSS under 6 GB and
+    peak card memory under 4 GB."""
+    import mmap
+    import resource
+
+    import grok_tpu_torch
+    from grok_tpu_torch import DecompressParams
+    from grok_tpu_torch.kernels import LAUNCHES
+    from grok_tpu_torch.tile.processor import HOST_PATH_TILES
+
+    n = GIGA_N
+    log("gigapixel RSS now / peak, GB: at the start %.2f / %.2f" % rss_gb())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mp = n * n / 1e6
+    tmp = tempfile.mkdtemp(prefix="grk_giga_")
+    path = os.path.join(tmp, "giga.j2k")
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        nbytes = grok_tpu_torch.compress_strips_file(
+            giga_meta(n, n), lambda y0, h: [giga_content(y0, y0 + h, n)],
+            path, giga_params())
+        t_enc = time.perf_counter() - t
+        log("gigapixel RSS after the encode %.2f / %.2f" % rss_gb())
+        enc_counts = dict(LAUNCHES)
+        if HOST_PATH_TILES["encode"] or not (
+                enc_counts["fwd53_level"] and enc_counts["ht_encode"]):
+            raise AssertionError(f"gigapixel encode: launches {enc_counts}, "
+                                 f"host-path tiles {dict(HOST_PATH_TILES)}")
+        reset_counts()
+        with open(path, "rb") as f:
+            data = memoryview(mmap.mmap(f.fileno(), 0,
+                                        access=mmap.ACCESS_READ))
+        t = time.perf_counter()
+        rows = 0
+        for y0, planes in grok_tpu_torch.decompress_strips(
+                data, DecompressParams()):
+            strip = planes.pop(0)
+            for r in range(0, strip.shape[0], 64):  # small temporaries
+                want = giga_content(y0 + r, y0 + min(r + 64,
+                                                     strip.shape[0]), n)
+                if not np.array_equal(strip[r:r + 64], want):
+                    raise AssertionError(f"gigapixel: strip at row {y0} "
+                                         "is not exact")
+            rows += strip.shape[0]
+            del strip
+        t_dec = time.perf_counter() - t
+        log("gigapixel RSS after the strip decode %.2f / %.2f" % rss_gb())
+        dec_counts = dict(LAUNCHES)
+        if rows != n:
+            raise AssertionError(f"gigapixel: strips gave {rows} rows")
+        if HOST_PATH_TILES["decode"] or not all(
+                dec_counts[k] for k in ("inv53_level", "ht_destuff",
+                                        "ht_decode", "ht_magsgn")):
+            raise AssertionError(f"gigapixel decode: launches {dec_counts}, "
+                                 f"host-path tiles {dict(HOST_PATH_TILES)}")
+        cx, cy = n * 5 // 8, n * 7 // 8  # tile corners: the window
+        dp = DecompressParams()           # crosses both seams
+        dp.window = (cx - 256, cy - 256, cx + 256, cy + 256)
+        t = time.perf_counter()
+        roi = grok_tpu_torch.decompress(data, dp).comps[0].data
+        t_roi = time.perf_counter() - t
+        if not np.array_equal(roi, giga_content(cy - 256, cy + 256, n)
+                              [:, cx - 256:cx + 256]):
+            raise AssertionError("gigapixel: the 512x512 ROI is not exact")
+        del data
+    finally:
+        for f in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, f))
+        os.rmdir(tmp)
+    peak_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    card_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"gigapixel {n}x{n} ({mp:.0f} MP) HT lossless, 1024^2 tiles: encode "
+        f"{mp / t_enc:.2f} MP/s ({t_enc:.1f} s), strip decode "
+        f"{mp / t_dec:.2f} MP/s ({t_dec:.1f} s, every strip exact), 512^2 "
+        f"ROI across tile seams {t_roi * 1e3:.1f} ms (exact), stream "
+        f"{nbytes / 1e6:.1f} MB, peak RSS {peak_rss:.2f} GB, peak card memory "
+        f"{card_gb:.3f} GB; launches encode {enc_counts} decode "
+        f"{dec_counts}; {card_note}")
+    if peak_rss >= 6:
+        raise AssertionError(f"gigapixel: peak RSS {peak_rss:.2f} GB >= 6")
+    if card_gb >= 4:
+        raise AssertionError(f"gigapixel: peak card memory {card_gb:.3f} GB "
+                             ">= 4")
+
+
+def gigapixel_only() -> int:
+    """The gigapixel phase in a process of its own, so that its peak RSS
+    is its own: builds (or finds built) the kernels and the native coder,
+    runs the phase, and checks that no jax or grok_tpu module loaded."""
+    from grok_tpu_torch.kernels import build
+    from grok_tpu_torch.tile import processor
+
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    build.build()
+    build.load()
+    processor.host_backend("device")
+    gigapixel_phase(f"card {card}")
+    no_reference_loaded()
+    log("gigapixel phase passed")
+    return 0
+
+
+def no_reference_loaded() -> None:
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu",
+                                           "PIL"))
+    if loaded:
+        raise AssertionError(f"jax, grok_tpu or Pillow modules loaded: "
+                             f"{loaded}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1505,6 +1886,8 @@ def main() -> int:
         return mq_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
     if sys.argv[1:2] == ["--dwt97-times"]:
         return dwt97_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
+    if sys.argv[1:2] == ["--gigapixel"]:
+        return gigapixel_only()
     import grok_tpu_torch  # noqa: F401  (fails outside a checkout)
     from grok_tpu_torch.kernels import LAUNCHES, build
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -1537,6 +1920,18 @@ def main() -> int:
     processor.host_backend("device")  # raises if the native coder fails
     log(f"native host coder ready in {time.perf_counter() - t0:.1f} s")
 
+    # config 5 in a process of its own, so that its peak RSS is its own,
+    # started while this process is small: a child's ru_maxrss starts from
+    # its parent's resident set at the fork
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--gigapixel"], timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the gigapixel phase exited "
+                             f"{proc.returncode}")
+    log(f"gigapixel phase (its own process) done in "
+        f"{time.perf_counter() - t0:.0f} s")
+    cli_profile_check(make_image())
     start = time.perf_counter()
 
     def phase(label):
@@ -1644,6 +2039,11 @@ def main() -> int:
     # the 9/7 and ICT kernels' launches are those of their own path
     counts.update({k: counts_d[k] for k in lossy})
     phase("case (d)")
+    with tempfile.TemporaryDirectory(prefix="grk_cli_") as tmp:
+        cli_phase(card_note, gray, rgb_c, tmp)
+    phase("cli")
+    giga_part_checks(card_note)
+    phase("gigapixel part checks")
     stage_breakdown(uhd)
     tier1_breakdown(uhd, kw_b, data_b)
     mq_breakdown("a", gray, kw_a, data_a)
@@ -1651,10 +2051,7 @@ def main() -> int:
     lossy_breakdown(rgb_d, kw_d, data_d)
     mq_breakdown("d", rgb_d, kw_d, data_d)
     phase("stage lines")
-    loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))
-    if loaded:
-        raise AssertionError(f"jax or grok_tpu modules loaded: {loaded}")
+    no_reference_loaded()
 
     kernels = []
     replaces = {

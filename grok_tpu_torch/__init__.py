@@ -14,7 +14,11 @@ routers take; only the MQ blocks outside those routers' limits, the MQ
 decode shape groups under 8, the ragged HT blocks and Tier-2 stay on the
 native C++ coder in `native/`, which the port compiles itself
 (t1/native.py).  Both packages write the same codestreams.  By default the
-entry points run on the card.
+entry points run on the card: compress and decompress, their strip, file
+and stream variants (the strip ones in memory O(tile row), for gigapixel
+images), and the command-line tools in grok_tpu_torch.cli (grk_compress,
+grk_decompress, grk_dump and the compare tools).  Colour post-processing
+after decode runs on the host.
 """
 
 __version__ = "0.1.0"
@@ -22,7 +26,12 @@ __version__ = "0.1.0"
 from .image import GrkImage  # noqa: F401
 from .params import CompressParams, DecompressParams  # noqa: F401
 
-_CODEC_API = ("compress", "decompress", "read_header")
+_CODEC_API = (
+    "compress", "compress_strips", "compress_strips_file", "decompress",
+    "read_header",
+    "decompress_strips", "decompress_file", "compress_file",
+    "decompress_stream", "compress_stream", "set_msg_handlers",
+)
 _ERRORS = ("GrkError", "CodestreamError", "ParamError")
 
 

@@ -7,10 +7,10 @@ compression, emits tile-parts (SOT..SOD..data), rewrites TLM at the end,
 terminates with EOC.
 
 grok_tpu's driver with the port's tile processor: with a device, all
-uniform full-size tiles go through one batched device analysis, and each
-tile's HT codeblocks through one launch of the device HT encoder.  The
-strip-reader and file-sink variants are not ported yet (ROADMAP A14), and
-neither is the multi-device mesh (ROADMAP A13).
+uniform full-size tiles go through one batched device analysis (a tile
+row at a time under a strip reader), and each tile's card Tier-1
+codeblocks through one launch of the device encoder.  The multi-device
+mesh is not ported yet (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -213,16 +213,36 @@ def setup_coding_params(image: GrkImage, p: CompressParams) -> CodingParams:
 
 
 def compress_codestream(image: GrkImage, p: CompressParams,
-                        device: torch.device | None) -> bytes:
+                        device: torch.device | None,
+                        strip_reader=None, sink=None) -> bytes:
     """Encode a full codestream; `device` is where the transforms run
-    (None: on the host)."""
+    (None: on the host).  With `strip_reader` set (the streaming dual of
+    decompress_strips), component data is fetched one tile row at a
+    time — reader(y0, h) returns one 2-D array per component covering
+    canvas rows [y0, y0+h) at that component's subsampling — and memory
+    stays O(tile row) instead of O(image), on the card too: a row's
+    device tensors are dropped before the next row is read.
+
+    With `sink` set (a seekable binary file), tile-parts are written as
+    they are produced and the TLM index is patched into a reserved span
+    by seek-back with a COM filler absorbing the reservation slack; the
+    return value is b"" and the codestream lives in the sink.  PPM/PLM
+    need post-hoc main-header assembly and are rejected with a sink."""
     if p.mesh is not None:
         raise NotImplementedError(
             "multi-device meshes are not ported yet: ROADMAP A13")
+    if sink is not None and (p.ppm or p.plm):
+        raise ParamError("PPM/PLM main-header indexes cannot be "
+                         "seek-back patched into a sink; use ppt/plt")
     for c in image.comps:
-        if c.data is None:
-            raise ParamError("component has no data")
-        c.h, c.w = c.data.shape
+        if c.data is not None:
+            c.h, c.w = c.data.shape
+        elif strip_reader is None:
+            raise ParamError("component has no data (use compress_strips "
+                             "with a reader for streaming encodes)")
+        elif not (c.w and c.h):
+            c.w = -(-image.x1 // c.dx) - c.x0
+            c.h = -(-image.y1 // c.dy) - c.y0
     cp = setup_coding_params(image, p)
     tcp0 = cp.tcps[0]
 
@@ -330,28 +350,73 @@ def compress_codestream(image: GrkImage, p: CompressParams,
             tile, tcp, image, cp, device, backend=backend,
             mct_norms_arr=mct_norms_arr, num_threads=p.num_threads))
 
-    # phase 1: build every tile's compressor; with a device, all uniform
-    # full-size tiles go through ONE batched analysis
-    compressors = [_make_compressor(q, pt)
-                   for q in range(cp.t_grid_h)
-                   for pt in range(cp.t_grid_w)]
-    if device is not None:
-        run_transforms_device_batched(
-            [t for (_, _, tr, t) in compressors
-             if tr.w == cp.t_width and tr.h == cp.t_height])
+    def _batch_full(row):
+        # with a device, the uniform full-size tiles go through ONE
+        # batched analysis
+        if device is not None:
+            run_transforms_device_batched(
+                [t for (_, _, tr, t) in row
+                 if tr.w == cp.t_width and tr.h == cp.t_height])
+
+    # phase 1: build every tile's compressor.  Strip-reader encodes defer
+    # construction to the row loop below so memory stays O(tile row).
+    compressors = None
+    if strip_reader is None:
+        compressors = [_make_compressor(q, pt)
+                       for q in range(cp.t_grid_h)
+                       for pt in range(cp.t_grid_w)]
+        _batch_full(compressors)
 
     if (p.plt or p.plm) and p.max_cs_size:
         # reserve the packet-length indexes' footprint in the byte budget
         # (a bound that no packet sizes can overshoot)
-        npkts = sum(res.pw * res.ph
-                    for (_ti, _tcpx, _tr, tcx) in compressors
-                    for comp in tcx.tile.comps
-                    for res in comp.resolutions) * tcp0.numlayers
+        if compressors is not None:
+            npkts = sum(res.pw * res.ph
+                        for (_ti, _tcpx, _tr, tcx) in compressors
+                        for comp in tcx.tile.comps
+                        for res in comp.resolutions) * tcp0.numlayers
+        else:
+            npkts = _count_packets_geometry(cp, image, img_rect) \
+                * tcp0.numlayers
         big = sum(min(npkts, p.max_cs_size >> s) for s in (14, 21, 28))
         p._cap_overhead += 2 * npkts + big + 8 * (npkts // 8000 + 2)
 
+    def _tile_iter():
+        if compressors is not None:
+            yield from compressors
+            return
+        # strip mode: one reader call per tile row, tiles built lazily,
+        # strip planes released as soon as the row is done; with a device
+        # the row's uniform tiles go through one batched analysis
+        for q in range(cp.t_grid_h):
+            ty0 = max(image.y0, cp.ty0 + q * cp.t_height)
+            ty1 = min(image.y1, cp.ty0 + (q + 1) * cp.t_height)
+            _install_strips(image, ty0, ty1, strip_reader)
+            try:
+                row = [_make_compressor(q, pt)
+                       for pt in range(cp.t_grid_w)]
+                _batch_full(row)
+                while row:
+                    yield row.pop(0)
+            finally:
+                for c in image.comps:
+                    c.data = None
+                    c._data_y0 = 0
+
+    tlm_pos = tlm_reserve = 0
+    if sink is not None:
+        sink.write(out)
+        if p.tlm:
+            # reserve an upper-bound TLM span now; the real index (known
+            # only after encoding) is seek-back patched, with a COM
+            # filler absorbing the remainder
+            tlm_reserve = len(mk.write_tlm(
+                0, _predict_tlm_entries(cp, p, image))) + 6
+            tlm_pos = sink.tell()
+            sink.write(b"\x00" * tlm_reserve)
+
     tlm_entries = []
-    for (tidx, tcp, trect, tc) in compressors:
+    for (tidx, tcp, trect, tc) in _tile_iter():
         tc.run_transforms()
         # layer budgets
         if p.layer_psnr:
@@ -419,8 +484,36 @@ def compress_codestream(image: GrkImage, p: CompressParams,
             tp += plt_seg
             tp += mk.u16(mk.SOD)
             tp += chunk
-            body_out += tp
+            if sink is not None:
+                sink.write(tp)
+            else:
+                body_out += tp
             tlm_entries.append((tidx, len(tp)))
+        if compressors is None:
+            # strip mode: the tile back to the pool and its device tensors
+            # dropped, so a row's bands leave the card with the row
+            tc.release()
+            del tc
+
+    if sink is not None:
+        sink.write(mk.u16(mk.EOC))
+        if p.tlm:
+            actual = mk.write_tlm(0, tlm_entries)
+            end = sink.tell()
+            sink.seek(tlm_pos)
+            gap = tlm_reserve - len(actual)
+            if gap == 0 or gap >= 6:
+                sink.write(actual)
+                sink.write(_com_filler(gap))
+            else:  # can't happen with the 255-per-tile bound; stay safe
+                log.warning("TLM (%d B) exceeds its %d B reservation; "
+                            "stream written without a TLM index",
+                            len(actual), tlm_reserve)
+                sink.write(_com_filler(tlm_reserve))
+            sink.seek(end)
+        for (_tidx, _tcp, _trect, tc) in compressors or ():
+            tc.release()
+        return b""
 
     if p.tlm:
         out += mk.write_tlm(0, tlm_entries)
@@ -440,9 +533,30 @@ def compress_codestream(image: GrkImage, p: CompressParams,
             z += 1
     out += body_out
     out += mk.u16(mk.EOC)
-    for (_tidx, _tcp, _trect, tc) in compressors:
-        release_tile(tc.tile)  # geometry tree back to the pool, scrubbed
+    for (_tidx, _tcp, _trect, tc) in compressors or ():
+        tc.release()  # geometry tree back to the pool, scrubbed
     return bytes(out)
+
+
+def _install_strips(image: GrkImage, cy0: int, cy1: int,
+                    strip_reader) -> None:
+    """Fetch canvas rows [cy0, cy1) from the reader and install them as
+    the components' (offset) data planes for one tile row."""
+    arrs = strip_reader(cy0, cy1 - cy0)
+    if len(arrs) != len(image.comps):
+        raise ParamError(
+            f"strip reader returned {len(arrs)} planes for "
+            f"{len(image.comps)} components")
+    for c, a in zip(image.comps, arrs):
+        r0 = -(-cy0 // c.dy) - c.y0  # first component row of the strip
+        r1 = -(-cy1 // c.dy) - c.y0
+        a = np.ascontiguousarray(a, dtype=np.int32)
+        if a.ndim != 2 or a.shape != (r1 - r0, c.w):
+            raise ParamError(
+                f"strip reader plane shape {a.shape} != expected "
+                f"{(r1 - r0, c.w)} for canvas rows [{cy0}, {cy1})")
+        c.data = a
+        c._data_y0 = r0
 
 
 def _tlm_parts_per_tile(cp, p, image) -> int:
@@ -474,7 +588,8 @@ def _tlm_parts_per_tile(cp, p, image) -> int:
 
 
 def _predict_tlm_entries(cp, p, image) -> list:
-    """Upper-bound TLM entry list for the -W cap budget."""
+    """Upper-bound TLM entry list for the sink reservation and the -W
+    cap budget."""
     per = _tlm_parts_per_tile(cp, p, image)
     return [(t, 0) for t in range(cp.numtiles) for _ in range(per)]
 
@@ -532,3 +647,42 @@ def _layer_targets(p: CompressParams, numlayers: int, raw_bytes: float):
         step = share / numlayers
         return [step * (i + 1) for i in range(numlayers - 1)] + [share]
     return [None] * numlayers
+
+
+def _com_filler(nbytes: int) -> bytes:
+    """Exactly nbytes of COM padding (nbytes == 0 or >= 6), split into
+    as many marker segments as the 64KB Lcom limit requires."""
+    out = bytearray()
+    while nbytes:
+        seg = min(nbytes, 65537)  # 6 bytes framing + 65531 text max
+        if 0 < nbytes - seg < 6:
+            seg = nbytes - 6  # leave room for a final minimal segment
+        out += mk.write_com("~" * (seg - 6))
+        nbytes -= seg
+    return bytes(out)
+
+
+def _count_packets_geometry(cp, image, img_rect) -> int:
+    """Total packets per layer, from transient tile geometry (strip-mode
+    encodes size the PLT/PLM budget before any tile data exists).  Tiles
+    sharing a geometry-pool key have identical precinct grids."""
+    from ..tile.processor import _tile_geo_key
+
+    total = 0
+    seen: dict = {}
+    for q in range(cp.t_grid_h):
+        for pt in range(cp.t_grid_w):
+            tidx = q * cp.t_grid_w + pt
+            tcp = cp.tcps[tidx]
+            trect = tile_rect(pt, q, cp.t_width, cp.t_height,
+                              cp.tx0, cp.ty0, img_rect)
+            key = _tile_geo_key(trect, image, tcp)
+            cnt = seen.get(key)
+            if cnt is None:
+                tile = acquire_tile(tidx, trect, image, tcp)
+                cnt = sum(res.pw * res.ph for comp in tile.comps
+                          for res in comp.resolutions)
+                release_tile(tile)
+                seen[key] = cnt
+            total += cnt
+    return total

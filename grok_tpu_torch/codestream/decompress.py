@@ -9,13 +9,14 @@ overrides (COD/COC/QCD/QCC/POC/RGN), PPM/PPT packed headers, tolerant
 With a `device`, each tile's HT codeblocks decode there (one launch of the
 device HT decoder a tile) and the synthesis of eligible tiles runs there
 (the port's tile processor), with several uniform tiles in one batched
-call.  The
-multi-device mesh (ROADMAP A13) and the strip decode with its deferred
-device planes (ROADMAP A14) are not ported yet.
+call.  The strip decode keeps one tile's synthesis in flight on the card
+(DeferredPlanes) while the next tile's Tier-2 and Tier-1 are issued.  The
+multi-device mesh (ROADMAP A13) is not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import struct
 from dataclasses import dataclass, field
@@ -28,12 +29,95 @@ from ..image import ColorSpace, GrkImage, ImageComponent
 from ..params import CodingParams, DecompressParams, TileCodingParams, \
     TileComponentCodingParams
 from ..tile.geometry import Rect, tile_rect
-from ..tile.processor import (TileDecompressor, acquire_tile,
-                              host_backend, reconstruct_device_batched,
-                              release_tile)
+from ..tile.processor import (DeferredPlanes, TileDecompressor,
+                              acquire_tile, host_backend,
+                              reconstruct_device_batched, release_tile)
 from . import markers as mk
 
 log = logging.getLogger("grok_tpu_torch")
+
+
+class _PendingTile:
+    """In-flight tile decode: device synthesis issued but not yet
+    materialized (decode-side pipelining — the next tile's host entropy
+    runs while this one's synthesis executes on the card).  The cache, if
+    any, receives the host planes once they are read back."""
+
+    __slots__ = ("planes", "rects", "ckey", "cache")
+
+    def __init__(self, planes, rects, ckey, cache):
+        self.planes = planes
+        self.rects = rects
+        self.ckey = ckey
+        self.cache = cache
+
+    def finish(self):
+        result = (self.planes.materialize(), self.rects)
+        if self.ckey is not None:
+            self.cache.put(self.ckey, result)
+        return result
+
+
+def _assemble(pieces) -> np.ndarray:
+    """grok_tpu's strip assembly: the bounding box of the (rect, plane)
+    pieces, each pasted in order, zeros where none landed."""
+    ry0 = min(r.y0 for r, _ in pieces)
+    ry1 = max(r.y1 for r, _ in pieces)
+    rx0 = min(r.x0 for r, _ in pieces)
+    rx1 = max(r.x1 for r, _ in pieces)
+    strip = np.zeros((ry1 - ry0, rx1 - rx0), dtype=np.int32)
+    for r, plane in pieces:
+        strip[r.y0 - ry0:r.y1 - ry0, r.x0 - rx0:r.x1 - rx0] = plane
+    return strip
+
+
+class _RowStrips:
+    """One tile row's strips, one a component, filled as the row's tiles
+    are read: each plane is pasted into its strip at once and dropped, so
+    a row holds its strips and little more (on a card the pinned buffer of
+    a tile goes back to the pool before the next but one is read).  The
+    result is _assemble's: each component's planes normally share the
+    row's rows and lie within `extents` (the canvas columns at the decode's
+    resolution), and a plane that does not turns what was pasted so far
+    into one piece of _assemble."""
+
+    def __init__(self, extents: dict[int, tuple[int, int]]):
+        self.extents = extents
+        self.boxes: dict[int, tuple[Rect, np.ndarray]] = {}
+        self.pieces: dict[int, list] = {}
+
+    def add(self, compno: int, r: Rect, plane: np.ndarray) -> None:
+        x0, x1 = self.extents[compno]
+        pieces = self.pieces.setdefault(compno, [])
+        fits = x0 <= r.x0 and r.x1 <= x1
+        if compno not in self.boxes and not pieces and fits:
+            self.boxes[compno] = (r, np.zeros((r.h, x1 - x0), np.int32))
+        if compno in self.boxes:
+            box, strip = self.boxes[compno]
+            if fits and (r.y0, r.y1) == (box.y0, box.y1):
+                strip[:, r.x0 - x0:r.x1 - x0] = plane
+                self.boxes[compno] = (Rect(min(box.x0, r.x0), box.y0,
+                                           max(box.x1, r.x1), box.y1), strip)
+                return
+            del self.boxes[compno]
+            pieces.append((box, strip[:, box.x0 - x0:box.x1 - x0]))
+        pieces.append((r, plane))
+
+    def strips(self) -> dict[int, np.ndarray]:
+        """The row's strips by component; the row keeps no reference."""
+        out = {}
+        for compno, pieces in self.pieces.items():
+            if compno not in self.boxes:
+                out[compno] = _assemble(pieces)
+                continue
+            box, strip = self.boxes[compno]
+            x0 = self.extents[compno][0]
+            out[compno] = strip if (box.x0, box.x1) == (
+                x0, x0 + strip.shape[1]) else np.ascontiguousarray(
+                strip[:, box.x0 - x0:box.x1 - x0])
+        self.boxes.clear()
+        self.pieces.clear()
+        return out
 
 
 @dataclass
@@ -714,10 +798,12 @@ class CodestreamDecoder:
 
     def decode_tile_planes(self, tidx: int, p: DecompressParams, img,
                            reduce_: int, win: Rect | None = None,
-                           cache=None):
+                           cache=None, defer: bool = False):
         """Decode one tile to per-component planes (+ their reduced-grid
         rects).  Returns None for empty / out-of-window / missing tiles.
-        An optional TileCache serves repeat requests."""
+        An optional TileCache serves repeat requests.  With `defer`, a
+        tile synthesised on the card comes back as a _PendingTile whose
+        finish() reads its planes."""
         cp = self.hi.cp
         hi = self.hi
         img_rect = Rect(hi.siz.xosiz, hi.siz.yosiz, hi.siz.xsiz, hi.siz.ysiz)
@@ -751,14 +837,94 @@ class CodestreamDecoder:
         td = self._tile_decompressor(tidx, tcp, tile, p, img, reduce_, win)
         self._decode_packets(td, tidx, b"".join(parts), p)
         td.run_t1()
-        planes = td.reconstruct()
-        rects = getattr(td, "_out_rects", None) or \
-            self._plane_rects(tile, tcp, reduce_)
+        planes = td.reconstruct(defer=defer)
+        deferred = isinstance(planes, DeferredPlanes)
+        rects = (None if deferred else getattr(td, "_out_rects", None)) \
+            or self._plane_rects(tile, tcp, reduce_)
         # O(window) introspection for tests/observability
         self.last_band_bytes = sum(
             a.nbytes for a in getattr(td, "_band_arrays", {}).values())
-        release_tile(tile)  # planes/rects are independent of the tree
+        # planes/rects are independent of the tree; a deferred synthesis
+        # owns its output tensor and runs on the stream its inputs were
+        # made on, so the pool may take the tile back now
+        release_tile(tile)
+        if deferred:
+            return _PendingTile(planes, rects, ckey, cache)
         result = (planes, rects)
         if ckey is not None:
             cache.put(ckey, result)
         return result
+
+    def decode_strips(self, p: DecompressParams,
+                      strip_height: int | None = None):
+        """Strip-streaming decode (StripCache parity, SURVEY.md §2.1):
+        yields (y0, {compno: plane_rows}).
+
+        Default granularity is one tile row; with a device, a tile's
+        synthesis stays in flight while the next tile's Tier-2 and Tier-1
+        are issued.  With `strip_height` (canvas rows), each strip is
+        produced through the window-aware decode path instead (host
+        synthesis, counted in HOST_PATH_TILES), so memory is O(strip) even
+        when tiles are taller than the strip."""
+        if not self._parsed:
+            self.parse()
+        if strip_height is not None and strip_height <= 0:
+            raise ValueError("strip_height must be positive")
+        # the pixel budget applies to the FULL (reduced) output even
+        # though strips bound memory — the CLI strip path would
+        # otherwise happily write a multi-gigabyte file for a tiny
+        # untrusted stream
+        w0, h0, red0 = self.hi.reduced_dims(p.reduce)
+        self._check_pixel_budget(w0 * h0, p)
+        if strip_height is not None:
+            hi = self.hi
+            div0 = 1 << red0
+            y = hi.siz.yosiz
+            while y < hi.siz.ysiz:
+                y1 = min(y + strip_height, hi.siz.ysiz)
+                sp = copy.copy(p)
+                sp.window = (hi.siz.xosiz, y, hi.siz.xsiz, y1)
+                img = self.decode(sp)
+                yield (-(-y // div0),
+                       {ci: c.data for ci, c in enumerate(img.comps)})
+                y = y1
+            return
+        cp = self.hi.cp
+        img = self._build_image_template()
+        reduce_ = red0
+        div = 1 << reduce_
+        extents = {ci: (-(-c.x0 // div), -(-(c.x0 + c.w) // div))
+                   for ci, c in enumerate(img.comps)}
+        defer = p.backend == "device" and self.device is not None
+        for tq in range(cp.t_grid_h):
+            row = _RowStrips(extents)
+            y0_out = None
+            # depth-1 software pipeline: tile tp's synthesis is issued on
+            # the card and read back only after tile tp+1's Tier-2 and
+            # Tier-1 have been issued
+            pending = None
+
+            def consume(result, row=row):
+                nonlocal y0_out
+                if result is None:
+                    return
+                if isinstance(result, _PendingTile):
+                    result = result.finish()
+                planes, rects = result
+                for compno, (plane, rr) in enumerate(zip(planes, rects)):
+                    row.add(compno, rr, plane)
+                    if y0_out is None:
+                        y0_out = rects[0].y0
+
+            for tp_ in range(cp.t_grid_w):
+                tidx = tq * cp.t_grid_w + tp_
+                started = self.decode_tile_planes(
+                    tidx, p, img, reduce_, defer=defer)
+                consume(pending)
+                pending = started
+            consume(pending)
+            strips = row.strips()
+            if not strips:
+                continue
+            yield y0_out, strips
+            del strips  # not held while the next row decodes

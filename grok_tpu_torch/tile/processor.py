@@ -22,7 +22,9 @@ Tier-1 calls and keeps its bands on the device: the encoders read their
 codeblocks there in place, and a band goes to the host only for the blocks
 the native coder codes; on decode the device decoders write their blocks
 straight into device band tensors that the synthesis takes, and the native
-coder's blocks go up as small copies.
+coder's blocks go up as small copies.  A deferred synthesis (the strip
+decode) comes back as DeferredPlanes: its copy to pinned host memory is
+still in flight behind a CUDA event until materialize().
 """
 
 from __future__ import annotations
@@ -317,6 +319,17 @@ class TileCompressor:
         self.mct_norms = mct_norms_arr
         self.num_threads = num_threads  # -H parity: native pool size
 
+    def release(self) -> None:
+        """The tile back to the geometry pool, scrubbed, and this
+        compressor's Tier-1 state dropped: on a card Tier-1 tile its jobs
+        hold views of the batched device bands, which must not outlive
+        the tile row."""
+        for c in self.tile.comps:
+            c.data = None  # a full pool keeps the tile unscrubbed
+        release_tile(self.tile)
+        self._t1_jobs = None
+        self._enc_seq = None
+
     # ---- stage 1: sample pipeline (DC shift + MCT + DWT + quant + T1) ----
 
     def device_eligible(self) -> bool:
@@ -359,8 +372,9 @@ class TileCompressor:
         for compno, tc in enumerate(tile.comps):
             comp = image.comps[compno]
             # extract tile-component samples from the component plane
+            # (_data_y0: strip-mode encodes hold only a tile row of it)
             r = tc.rect
-            y0 = r.y0 - comp.y0
+            y0 = r.y0 - comp.y0 - getattr(comp, "_data_y0", 0)
             x0 = r.x0 - comp.x0
             raw.append(comp.data[y0:y0 + r.h, x0:x0 + r.w])
         planes: list = [None] * len(raw)
@@ -1228,7 +1242,7 @@ class TileCompressor:
                 rec = mct_mod.shift_round_clip(p, comp.prec, comp.sgnd)
             tc = tile.comps[compno]
             r = tc.rect
-            y0 = r.y0 - comp.y0
+            y0 = r.y0 - comp.y0 - getattr(comp, "_data_y0", 0)
             x0 = r.x0 - comp.x0
             orig = comp.data[y0:y0 + r.h, x0:x0 + r.w]
             if orig.shape != rec.shape:
@@ -1777,8 +1791,9 @@ def _analyse(tcs: list[TileCompressor]) -> None:
     def plane(t, compno):
         comp = t.image.comps[compno]
         r = t.tile.comps[compno].rect
-        return comp.data[r.y0 - comp.y0:r.y1 - comp.y0,
-                         r.x0 - comp.x0:r.x1 - comp.x0]
+        # _data_y0: strip-mode encodes hold only a tile row of the plane
+        y0 = r.y0 - comp.y0 - getattr(comp, "_data_y0", 0)
+        return comp.data[y0:y0 + r.h, r.x0 - comp.x0:r.x1 - comp.x0]
 
     stack = np.array([[plane(t, c) for t in tcs] for c in range(ncomp)],
                      dtype=np.int32)  # (C, B, H, W)
@@ -1809,10 +1824,13 @@ def run_transforms_device_batched(tcs: list[TileCompressor]) -> bool:
     return True
 
 
-def _synthesise(tds: list["TileDecompressor"]) -> list[list[np.ndarray]]:
+def _synthesise(tds: list["TileDecompressor"],
+                defer: bool = False):
     """Device synthesis of a uniform batch of tiles: per tile, its
     component planes.  Bands the Tier-1 decoders wrote on the device are
-    taken as they are; host bands go up."""
+    taken as they are; host bands go up.  With `defer` (one tile) the
+    result is a DeferredPlanes with the synthesis and its copy back still
+    in flight."""
     first = tds[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
@@ -1835,7 +1853,10 @@ def _synthesise(tds: list["TileDecompressor"]) -> list[list[np.ndarray]]:
         bands, numres=first.tcp.tccps[0].numresolutions,
         reversible=reversible, mct=first.tcp.mct, prec=comp0.prec,
         sgnd=comp0.sgnd, shape=(r.h, r.w),
-        deltas=_deltas(first.tile, reversible)).cpu().numpy()
+        deltas=_deltas(first.tile, reversible))
+    if defer:
+        return DeferredPlanes(out)
+    out = out.cpu().numpy()
     return [[out[c, bi] for c in range(ncomp)] for bi in range(len(tds))]
 
 
@@ -1852,6 +1873,41 @@ def reconstruct_device_batched(tds: list["TileDecompressor"]):
 # ---------------------------------------------------------------------------
 # Decompression
 # ---------------------------------------------------------------------------
+
+class DeferredPlanes:
+    """One tile's device synthesis, not yet read back, so that host work
+    (the next tile's Tier-2 and Tier-1) overlaps it.
+
+    On a CUDA tensor the output is copied with non_blocking=True into a
+    pinned host tensor on the current stream, the stream the synthesis
+    ran on, and an event is recorded after the copy; materialize() waits
+    for that event and returns numpy views of the pinned tensor.  Nothing
+    may read the pinned tensor before the event completes: it would give
+    stale planes with no error.  On a CPU tensor the planes are already
+    computed and materialize() returns them."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, out: torch.Tensor):
+        """`out`: (C, 1, H, W) int32, the synthesis of one tile."""
+        if out.is_cuda:
+            self._host = torch.empty(out.shape, dtype=out.dtype,
+                                     pin_memory=True)
+            self._host.copy_(out, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = out
+            self._event = None
+
+    def materialize(self) -> list[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        out = self._host.numpy()
+        self._host = None
+        return [out[c, 0] for c in range(out.shape[0])]
+
 
 class TileDecompressor:
     """`device` and `backend` as for TileCompressor."""
@@ -2416,19 +2472,25 @@ class TileDecompressor:
                 return False
         return tcp.mct in (0, 1) and _uniform_quant(tcp)
 
-    def reconstruct_device(self):
+    def reconstruct_device(self, defer: bool = False):
         """Device synthesis of this tile: per-component planes, or None if
-        the tile is not eligible."""
+        the tile is not eligible.  With defer=True the result is a
+        DeferredPlanes whose synthesis and copy back are still in flight
+        on the card, so the caller can run the NEXT tile's host entropy
+        stages meanwhile (decode-side StripCache-overlap parity)."""
         if not self._device_eligible():
             return None
+        if defer:
+            return _synthesise([self], defer=True)
         return _synthesise([self])[0]
 
-    def reconstruct(self):
+    def reconstruct(self, defer: bool = False):
         """Inverse DWT + MCT + DC shift; returns per-component planes at the
-        reduced resolution.  With a decode window set, the synthesis is
-        window-aware: only the produce-chain spans are lifted (SURVEY.md
-        §3.3) and the planes cover just the window (self._out_rects)."""
-        planes = self.reconstruct_device()
+        reduced resolution (a DeferredPlanes for a deferred device tile).
+        With a decode window set, the synthesis is window-aware: only the
+        produce-chain spans are lifted (SURVEY.md §3.3) and the planes
+        cover just the window (self._out_rects)."""
+        planes = self.reconstruct_device(defer=defer)
         if planes is not None:
             return planes
         HOST_PATH_TILES["decode"] += 1

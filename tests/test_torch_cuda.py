@@ -548,3 +548,41 @@ def test_mq_kernels_extreme_shapes(gen, style, dist):
     assert LAUNCHES["mq_decode"] == 1
     for o, r in zip(outs, mq_decode.decode_cblks_mq_plain(items)):
         assert torch.equal(o.cpu(), r)
+
+
+def test_deferred_strip_decode_on_the_card(gen, monkeypatch):
+    """decompress_strips on the card keeps one tile's synthesis in flight:
+    every tile's planes are read (DeferredPlanes.materialize, after its
+    event) only once the next tile of its row has launched its HT
+    decode; the strips equal the whole decode and the input bit for bit,
+    and no tile takes the host path."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+    from grok_tpu_torch.tile import processor
+
+    rng = np.random.default_rng(5)
+    arr = rng.integers(0, 256, (96, 128)).astype(np.uint8)
+    data = grok_tpu_torch.compress(GrkImage.from_array(arr), CompressParams(
+        numresolution=3, tile_size=(32, 32), ht=True))
+    whole = grok_tpu_torch.decompress(data).comps[0].data
+    assert np.array_equal(whole, arr)
+    seen = []
+    materialize = processor.DeferredPlanes.materialize
+
+    def spy(self):
+        seen.append(LAUNCHES["ht_decode"])
+        return materialize(self)
+
+    monkeypatch.setattr(processor.DeferredPlanes, "materialize", spy)
+    reset_launches()
+    for k in processor.HOST_PATH_TILES:
+        processor.HOST_PATH_TILES[k] = 0
+    strips = list(grok_tpu_torch.decompress_strips(data,
+                                                   DecompressParams()))
+    assert [y0 for y0, _ in strips] == [0, 32, 64]
+    assert np.array_equal(np.vstack([s[0] for _, s in strips]), whole)
+    assert processor.HOST_PATH_TILES["decode"] == 0
+    assert LAUNCHES["ht_decode"] == 12 and LAUNCHES["inv53_level"] == 24
+    # tile k of a 4-tile row is read after tile k+1's launch; the row's
+    # last tile after its own
+    assert seen == [k + 2 if k % 4 < 3 else k + 1 for k in range(12)]

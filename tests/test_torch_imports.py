@@ -62,6 +62,63 @@ def test_port_imports_no_jax():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+_NO_JAX_VARIANTS = """
+import io, json, os, sys, tempfile
+before = set(sys.modules)
+import numpy as np
+import grok_tpu_torch
+from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+from grok_tpu_torch.cli import (common, compare_dump_files, compare_images,
+                                compare_raw_files, grk_compress,
+                                grk_decompress, grk_dump, random_tile_access)
+from grok_tpu_torch.image import ColorSpace
+from grok_tpu_torch.io import formats, stripio
+from grok_tpu_torch.parallel import distributed
+from grok_tpu_torch.util import caches, color, icc
+rng = np.random.default_rng(0)
+arr = rng.integers(0, 256, (40, 36, 3)).astype(np.uint8)
+img = GrkImage.from_array(arr)
+p = CompressParams(tile_size=(16, 16), numresolution=3, ht=True, tlm=True)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "s.j2k")
+    planes = [c.data for c in img.comps]
+    grok_tpu_torch.compress_strips_file(
+        img, lambda y0, h: [pl[y0:y0 + h] for pl in planes], path, p,
+        device="cpu")
+    rows = [s for _, s in grok_tpu_torch.decompress_strips(
+        open(path, "rb").read(), DecompressParams(), device="cpu")]
+    assert np.array_equal(np.vstack([r[0] for r in rows]), arr[..., 0])
+    out = grok_tpu_torch.decompress_file(path, DecompressParams(
+        precision=[4, 4, 4], upsample=True), device="cpu")
+    src, back = os.path.join(tmp, "g.pgm"), os.path.join(tmp, "b.pgm")
+    with open(src, "wb") as f:
+        f.write(b"P5\\n36 40\\n255\\n" + arr[..., 0].tobytes())
+    for argv, tool in (([src, path + "2", "-n", "3"], grk_compress),
+                       ([path + "2", back], grk_decompress)):
+        assert tool.main(["-i", argv[0], "-o", argv[1], "--device", "cpu"]
+                         + argv[2:]) == 0
+    assert open(src, "rb").read() == open(back, "rb").read()
+    assert grk_dump.main(["-i", path, "-o", os.path.join(tmp, "d")]) == 0
+ycc = GrkImage.from_array(arr)
+ycc.color_space = ColorSpace.SYCC
+color.sycc_to_rgb(ycc)
+print(json.dumps(sorted(m for m in set(sys.modules) - before
+                        if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu",
+                                               "PIL"))))
+"""
+
+
+def test_variants_cli_and_color_import_no_jax_or_pillow():
+    """The strip, file and stream variants, the CLI on PNM files, the
+    colour post-processing and every new module of the port load no jax,
+    no grok_tpu and no Pillow module."""
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_VARIANTS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("where", ["checkout", "bare"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """chip_smoke.py exits nonzero, printing no result line, where torch
@@ -227,6 +284,36 @@ def test_defaults_target_the_card(monkeypatch):
         grok_tpu_torch.compress(img)
     with pytest.raises(RuntimeError, match="cuda"):
         grok_tpu_torch.decompress(data)
+
+
+def test_variants_default_to_the_card(monkeypatch, tmp_path):
+    """Every codec entry point runs on the card unless asked for the CPU:
+    without CUDA each one raises instead of moving to the CPU."""
+    import io
+
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, GrkImage
+
+    arr = np.zeros((16, 16), np.uint8)
+    img = GrkImage.from_array(arr)
+    data = grok_tpu_torch.compress(img, CompressParams(backend="native"))
+    path = tmp_path / "d.j2k"
+    path.write_bytes(data)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: grok_tpu_torch.compress_strips(
+            img, lambda y0, h: [arr[y0:y0 + h]]),
+        lambda: grok_tpu_torch.compress_strips_file(
+            img, lambda y0, h: [arr[y0:y0 + h]], str(tmp_path / "s.j2k")),
+        lambda: grok_tpu_torch.compress_file(img, str(tmp_path / "f.j2k")),
+        lambda: grok_tpu_torch.compress_stream(img, io.BytesIO()),
+        lambda: list(grok_tpu_torch.decompress_strips(data)),
+        lambda: grok_tpu_torch.decompress_file(str(path)),
+        lambda: grok_tpu_torch.decompress_stream(io.BytesIO(data)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_cpu_defaults_launch_nothing():
