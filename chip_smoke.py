@@ -52,6 +52,20 @@ instead of an exact decode it must meet its 20:1 rate, its round trip's
 PSNR must be within 0.1 dB of the host route's, and the card's decode of
 the host route's codestream within 1 of the host route's own decode.
 
+A `mesh` phase then runs parallel/mesh.py on the card: every sharded
+5/3 and 9/7 level (the 9/7 with and without case (d)'s steps) at sp 2, 4
+and 8, at case (d)'s and case (b)'s level-1 shapes, bit for bit against
+the level kernels on the whole tensors and against the plain sharded
+route on a part; case (c) on dp 2 x sp 2, case (d) and a 2048x2048
+lossless HT tile on sp 4, and case (b) on sp 2 (a height the mesh cannot
+row-shard: one device) through compress and decompress, equal to this
+process's single-device bytes and decodes with one level launch a shard
+a level, their times beside one device's; the mesh's slots are the
+visible cards in turn (cuda:0 repeated on a one-card machine), and with
+two or more cards cases (c) and (d) run again over distinct cards, or a
+line says the copies between cards were not run; then the dry run and
+the refusal of an int mesh larger than the visible cards.
+
 Then two phases drive the port's other entry points.  `cli`: BASELINE
 config 1 through the command-line tools in process with their defaults
 (the card): the 512x512 gray image as PGM through grk_compress and
@@ -1868,6 +1882,243 @@ def gigapixel_only() -> int:
     return 0
 
 
+# ------------------------------------------------------------ mesh phase
+
+def case_d_steps() -> tuple[float, ...]:
+    """Case (d)'s quantization steps at its first level (resolution 4 of
+    5) as the codec gives them to the level kernels: (ll, hl, lh, hh),
+    LL unquantized there."""
+    from grok_tpu_torch.tile.geometry import BAND_GAIN, HH, HL, LH
+    from grok_tpu_torch.transform import quant
+
+    ss = quant.default_stepsizes(8, 5, False)
+    return (0.0,) + tuple(
+        quant.decode_stepsize(ss[1 + 3 * 3 + j], 8 + BAND_GAIN[o])
+        for j, o in enumerate((HL, LH, HH)))
+
+
+def card_slots(n: int) -> list[torch.device]:
+    """n mesh slots over the visible cards in turn: cuda:0 n times on a
+    machine with one card."""
+    k = torch.cuda.device_count()
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
+def card_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """bit_err on the card: float32 compared by its bits."""
+    if a.dtype != b.dtype:
+        raise AssertionError(f"dtype {a.dtype} != {b.dtype}")
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return max_err(a, b)
+
+
+def mesh_levels(pmesh, dwt) -> dict:
+    """Every sharded level against the level kernel on the whole tensor,
+    bit for bit: the forward and inverse 5/3 and 9/7 levels (the 9/7
+    without steps and with case (d)'s), at case (d)'s level-1 shape
+    3 x 2048 x 2048 and case (b)'s 3 x 2160 x 3840, on sp 2, 4 and 8
+    slots of the visible card(s); and the card's sharded route against
+    the plain sharded route (the CPU's slots) on a 3 x 256 x 512 part.
+    Returns the largest error of each comparison."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    steps = case_d_steps()
+    err = {"whole": 0, "plain": 0}
+    calls = 0
+    for h, w in ((2048, 2048), UHD):
+        x = randint(gen, (3, 1, h, w), -512, 512)
+        xf = normal(gen, (3, 1, h, w), 600.0)
+        # (input, reversible, steps, its level's bands, the inverse's
+        # bands (the 9/7's doubled where a step is given), its output)
+        cases = []
+        for inp, rev, st in ((x, True, None), (xf, False, None),
+                             (xf, False, steps)):
+            fwd = dwt.fwd_level(inp, rev, st)
+            inb = [2 * b + torch.sign(b) if s > 0 else b
+                   for b, s in zip(fwd, st or (0,) * 4)]
+            cases.append((inp, rev, st, fwd, inb,
+                          dwt.inv_level(*inb, h, w, rev, st)))
+        for sp in (2, 4, 8):
+            mesh = pmesh.Mesh([card_slots(sp)])
+            cpu = pmesh.Mesh([["cpu"] * sp])
+            for inp, rev, st, fwd, inb, want in cases:
+                def level(m, t, bs):
+                    if rev:
+                        return (pmesh.sp_sharded_fwd_53_level(m, t),
+                                pmesh.sp_sharded_inv_53_level(m, *bs))
+                    return (pmesh.sp_sharded_fwd_97_level(m, t, st),
+                            pmesh.sp_sharded_inv_97_level(m, *bs, steps=st))
+
+                got, back = level(mesh, inp, inb)
+                calls += 2
+                err["whole"] = max([err["whole"], card_err(back, want)] +
+                                   [card_err(g, r) for g, r in zip(got, fwd)])
+                if (h, w) == UHD:
+                    part = inp[..., :256, :512].contiguous()
+                    bpart = [b[..., :128, :256].contiguous() for b in inb]
+                    (cf, cb), (pf, pb) = (
+                        level(mesh, part, bpart),
+                        level(cpu, part.cpu(), [b.cpu() for b in bpart]))
+                    err["plain"] = max(
+                        [err["plain"], bit_err(cb, pb)] +
+                        [bit_err(a, b) for a, b in zip(cf, pf)])
+    torch.cuda.synchronize()
+    log(f"mesh levels: {calls} sharded level calls (sp 2, 4, 8 at 3x2048x"
+        f"2048 and 3x2160x3840; 5/3, 9/7, 9/7 with case (d)'s steps "
+        f"{tuple(round(s, 6) for s in steps)}, each way) against the level "
+        f"kernels on the whole tensors: max bit error {err['whole']}; the "
+        f"card's sharded route against the plain sharded route on a "
+        f"3x256x512 part: {err['plain']}")
+    if any(err.values()):
+        raise AssertionError(f"sharded levels differ: {err}")
+    return err
+
+
+def mesh_codec(name, arr, kw, mesh, data, want, levels, card_note):
+    """compress and decompress on the card through `mesh`: the bytes
+    `data` (the same process's single-device codestream), the decode
+    `want`, no tile on the host path, and the launches of the transform
+    kernels `levels` ({counter: launches} each way).  Returns (encode s,
+    decode s)."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+    from grok_tpu_torch.kernels import LAUNCHES
+    from grok_tpu_torch.tile.processor import HOST_PATH_TILES
+
+    img = GrkImage.from_array(arr)
+    reset_counts()
+    t = time.perf_counter()
+    got = grok_tpu_torch.compress(img, CompressParams(mesh=mesh, **kw))
+    torch.cuda.synchronize()
+    enc = time.perf_counter() - t
+    t = time.perf_counter()
+    out = grok_tpu_torch.decompress(got, DecompressParams(mesh=mesh))
+    torch.cuda.synchronize()
+    dec = time.perf_counter() - t
+    counts = {k: LAUNCHES[k] for k in levels}
+    if got != data:
+        raise AssertionError(f"mesh {name}: codestream differs from the "
+                             f"single-device one ({len(got)} vs {len(data)} "
+                             "bytes)")
+    if not np.array_equal(out.to_array(), want):
+        raise AssertionError(f"mesh {name}: decode differs from the "
+                             "single-device card decode")
+    if counts != levels:
+        raise AssertionError(f"mesh {name}: launches {counts}, expected "
+                             f"{levels}")
+    if any(HOST_PATH_TILES.values()):
+        raise AssertionError(f"mesh {name}: tiles took the host path: "
+                             f"{dict(HOST_PATH_TILES)}")
+    log(f"mesh {name} on {mesh}: {len(got)} bytes identical to the "
+        f"single-device card route, decode equal to it, launches {counts}; "
+        f"e2e encode {enc * 1e3:.1f} ms, decode {dec * 1e3:.1f} ms; "
+        f"{card_note}")
+    return enc, dec
+
+
+def single_times(arr, kw, data):
+    """One single-device card encode and decode (s), for the mesh lines."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, GrkImage
+
+    img = GrkImage.from_array(arr)
+    t = time.perf_counter()
+    grok_tpu_torch.compress(img, CompressParams(**kw))
+    torch.cuda.synchronize()
+    enc = time.perf_counter() - t
+    t = time.perf_counter()
+    out = grok_tpu_torch.decompress(data)
+    torch.cuda.synchronize()
+    return enc, time.perf_counter() - t, out.to_array()
+
+
+def mesh_phase(card_note, rgb_c, kw_c, data_c, rgb_d, kw_d, data_d, uhd,
+               kw_b, data_b) -> None:
+    """The multi-device mesh (parallel/mesh.py) on the card: the sharded
+    levels bit for bit; cases (c) on dp 2 x sp 2, (d) on sp 4 and a 2048^2
+    lossless HT tile on sp 4 through the codec, equal to this process's
+    single-device bytes and decodes, each level kernel launched once a
+    shard a level; case (b) on sp 2, whose height the mesh cannot
+    row-shard, on one device; the same cases over distinct cards where
+    there are several; the dry run; the refusal of an int mesh larger
+    than the visible cards."""
+    from grok_tpu_torch.ops import dwt
+    from grok_tpu_torch.parallel import mesh as pmesh
+
+    mesh_levels(pmesh, dwt)
+    kw_h = dict(numresolution=6, ht=True)
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, GrkImage
+
+    data_h = grok_tpu_torch.compress(GrkImage.from_array(rgb_c),
+                                     CompressParams(**kw_h))
+    single = {"c": single_times(rgb_c, kw_c, data_c),
+              "d": single_times(rgb_d, kw_d, data_d),
+              "h": single_times(rgb_c, kw_h, data_h)}
+
+    def levels(n, lossy, numres):
+        """The transform kernels' launches each way on n shards."""
+        if lossy:
+            return dict(fwd97_level=n * (numres - 1), ict_forward_shift=n,
+                        inv97_level=n * (numres - 1), ict_inverse_unshift=n)
+        return dict(fwd53_level=n * (numres - 1), rct_forward_shift=n,
+                    inv53_level=n * (numres - 1), rct_inverse_unshift=n)
+
+    def cases(slots_c, dp_c, slots_d, where):
+        times = {}
+        mesh_c = pmesh.make_mesh(len(slots_c), dp=dp_c,
+                                 sp=len(slots_c) // dp_c, devices=slots_c)
+        times["c"] = mesh_codec(
+            f"c {where}", rgb_c, kw_c, mesh_c, data_c, rgb_c,
+            levels(mesh_c.size, False, 6), card_note)
+        mesh_d = pmesh.make_mesh(len(slots_d), dp=1, sp=len(slots_d),
+                                 devices=slots_d)
+        times["d"] = mesh_codec(
+            f"d {where}", rgb_d, kw_d, mesh_d, data_d, single["d"][2],
+            levels(mesh_d.size, True, 5), card_note)
+        return times, mesh_d
+
+    one = card_slots(4)
+    times, mesh4 = cases(one, 2, one, "dp 2 x sp 2 / sp 4")
+    times["h"] = mesh_codec("2048x2048 RGB HT lossless, one tile, sp 4",
+                            rgb_c, kw_h, mesh4, data_h, rgb_c,
+                            levels(4, False, 6), card_note)
+    mesh_b = pmesh.make_mesh(2, dp=1, sp=2, devices=card_slots(2))
+    if pmesh.sp_transform_ok(mesh_b, UHD[0], 6):
+        raise AssertionError("case (b)'s height should not row-shard")
+    mesh_codec("b on sp 2 (2160 rows do not row-shard 6 resolutions: one "
+               "device)", uhd, kw_b, mesh_b, data_b, uhd,
+               levels(1, False, 6), card_note)
+    for k, label in (("c", "c dp 2 x sp 2"), ("d", "d sp 4"),
+                     ("h", "HT 2048x2048 sp 4")):
+        log(f"mesh e2e {label}: encode {times[k][0] * 1e3:.1f} ms, decode "
+            f"{times[k][1] * 1e3:.1f} ms against one device's "
+            f"{single[k][0] * 1e3:.1f} / {single[k][1] * 1e3:.1f} ms (one "
+            f"run each, the mesh's slots on "
+            f"{sorted({str(d) for d in one})}; no gain claimed); "
+            f"{card_note}")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cards = [torch.device("cuda", i) for i in range(min(n, 4))]
+        sp_d = 4 if len(cards) >= 4 else 2
+        cases(cards[:2 * (len(cards) // 2)], len(cards) // 2,
+              cards[:sp_d], f"over {len(cards)} distinct cards")
+        log(f"mesh: copies between cards ran, over {len(cards)} of {n} "
+            "cards")
+    else:
+        log("mesh: only one card was visible, so the copies between cards "
+            "were not run (every slot above is cuda:0)")
+    pmesh.dryrun_multichip(4, card_slots(4))
+    try:
+        pmesh.resolve_mesh(n + 1, "cuda")
+    except ValueError as e:
+        log(f"mesh: resolve_mesh({n + 1}, 'cuda') raises with {n} visible: "
+            f"{e}")
+    else:
+        raise AssertionError(f"resolve_mesh({n + 1}, 'cuda') did not raise "
+                             f"with {n} card(s) visible")
+
+
 def no_reference_loaded() -> None:
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu",
@@ -2039,6 +2290,9 @@ def main() -> int:
     # the 9/7 and ICT kernels' launches are those of their own path
     counts.update({k: counts_d[k] for k in lossy})
     phase("case (d)")
+    mesh_phase(card_note, rgb_c, kw_c, data_c, rgb_d, kw_d, data_d, uhd,
+               kw_b, data_b)
+    phase("mesh")
     with tempfile.TemporaryDirectory(prefix="grk_cli_") as tmp:
         cli_phase(card_note, gray, rgb_c, tmp)
     phase("cli")

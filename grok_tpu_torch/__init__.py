@@ -18,7 +18,10 @@ entry points run on the card: compress and decompress, their strip, file
 and stream variants (the strip ones in memory O(tile row), for gigapixel
 images), and the command-line tools in grok_tpu_torch.cli (grk_compress,
 grk_decompress, grk_dump and the compare tools).  Colour post-processing
-after decode runs on the host.
+after decode runs on the host.  `CompressParams.mesh` and
+`DecompressParams.mesh` shard the sample transforms over several devices
+(grok_tpu_torch.parallel.mesh: tile batches over a dp axis, one tile's
+rows over an sp axis), with the codestreams of one device.
 """
 
 __version__ = "0.1.0"

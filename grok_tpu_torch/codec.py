@@ -15,6 +15,18 @@ analysis a tile row, the decode keeps one tile's synthesis in flight on
 the card while the next tile's Tier-2 and Tier-1 run.  Colour
 post-processing after decode (util/color.py, util/icc.py) runs on the
 host.
+
+`params.mesh` shards the sample transforms over several devices
+(parallel/mesh.py): an int n builds a dp mesh over n visible CUDA
+devices (raising where fewer are visible), or with `device="cpu"` over
+the CPU repeated; a parallel.mesh.Mesh, whose devices must be of
+`device`'s type, is taken as it is.  The batched tiles of compress and
+decompress (and of compress_strips, a tile row at a time) then shard
+over its dp axis and, with sp > 1, each tile's rows over its sp axis
+(one tile is then a batch too); the codestream and the decoded samples
+are those of one device, bit for bit.  Tier-1 and Tier-2 run where they
+run without a mesh: on `device` under `backend="device"`, on the host
+under `backend="native"`.  Strip decodes take no mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from .codestream.compress import compress_codestream
 from .codestream.decompress import CodestreamDecoder, HeaderInfo
 from .device import resolve_device
 from .image import ColorSpace, GrkImage
+from .parallel.mesh import resolve_mesh
 from .params import CompressParams, DecompressParams
 
 Device = str | torch.device
@@ -42,7 +55,8 @@ def compress(image: GrkImage, params: CompressParams | None = None,
     """Encode a GrkImage to a raw codestream (.j2k) or JP2 file."""
     params = params or CompressParams()
     cs = compress_codestream(image, params,
-                             _device_for(params.backend, device))
+                             _device_for(params.backend, device),
+                             mesh=resolve_mesh(params.mesh, device))
     if params.cod_format == "jp2":
         return jp2_mod.wrap_jp2(cs, image, ht=params.ht)
     return cs
@@ -61,7 +75,8 @@ def compress_strips(image: GrkImage, reader,
     params = params or CompressParams()
     cs = compress_codestream(image, params,
                              _device_for(params.backend, device),
-                             strip_reader=reader)
+                             strip_reader=reader,
+                             mesh=resolve_mesh(params.mesh, device))
     if params.cod_format == "jp2":
         return jp2_mod.wrap_jp2(cs, image, ht=params.ht)
     return cs
@@ -81,7 +96,8 @@ def compress_strips_file(image: GrkImage, reader, path: str,
         if params.cod_format == "jp2":
             # jp2c LBox=0: codestream runs to end of file (I.5.1)
             f.write(jp2_mod.jp2_prefix(image, ht=params.ht))
-        compress_codestream(image, params, dev, strip_reader=reader, sink=f)
+        compress_codestream(image, params, dev, strip_reader=reader, sink=f,
+                            mesh=resolve_mesh(params.mesh, device))
         return f.tell()
 
 
@@ -125,7 +141,8 @@ def decompress(data: bytes, params: DecompressParams | None = None,
     dec = CodestreamDecoder(cs, strict=params.strict,
                             device=_device_for(params.backend, device))
     dec.parse()
-    img = dec.decode(params, cache=cache)
+    img = dec.decode(params, cache=cache,
+                     mesh=resolve_mesh(params.mesh, device))
     if meta is not None:
         img.meta = meta
     if colorspace is not None:

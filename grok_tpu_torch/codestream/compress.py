@@ -9,8 +9,9 @@ terminates with EOC.
 grok_tpu's driver with the port's tile processor: with a device, all
 uniform full-size tiles go through one batched device analysis (a tile
 row at a time under a strip reader), and each tile's card Tier-1
-codeblocks through one launch of the device encoder.  The multi-device
-mesh is not ported yet (ROADMAP A13).
+codeblocks through one launch of the device encoder.  With a mesh
+(parallel/mesh.py) that batch's transforms shard over its devices, on
+the host route too; Tier-1 and Tier-2 stay where they run without one.
 """
 
 from __future__ import annotations
@@ -214,9 +215,11 @@ def setup_coding_params(image: GrkImage, p: CompressParams) -> CodingParams:
 
 def compress_codestream(image: GrkImage, p: CompressParams,
                         device: torch.device | None,
-                        strip_reader=None, sink=None) -> bytes:
+                        strip_reader=None, sink=None, mesh=None) -> bytes:
     """Encode a full codestream; `device` is where the transforms run
-    (None: on the host).  With `strip_reader` set (the streaming dual of
+    (None: on the host), and `mesh` (p.mesh resolved by
+    parallel.mesh.resolve_mesh, or None) the devices the batched
+    transforms shard over.  With `strip_reader` set (the streaming dual of
     decompress_strips), component data is fetched one tile row at a
     time — reader(y0, h) returns one 2-D array per component covering
     canvas rows [y0, y0+h) at that component's subsampling — and memory
@@ -228,9 +231,6 @@ def compress_codestream(image: GrkImage, p: CompressParams,
     by seek-back with a COM filler absorbing the reservation slack; the
     return value is b"" and the codestream lives in the sink.  PPM/PLM
     need post-hoc main-header assembly and are rejected with a sink."""
-    if p.mesh is not None:
-        raise NotImplementedError(
-            "multi-device meshes are not ported yet: ROADMAP A13")
     if sink is not None and (p.ppm or p.plm):
         raise ParamError("PPM/PLM main-header indexes cannot be "
                          "seek-back patched into a sink; use ppt/plt")
@@ -348,15 +348,16 @@ def compress_codestream(image: GrkImage, p: CompressParams,
         tile = acquire_tile(tidx, trect, image, tcp)
         return (tidx, tcp, trect, TileCompressor(
             tile, tcp, image, cp, device, backend=backend,
-            mct_norms_arr=mct_norms_arr, num_threads=p.num_threads))
+            mct_norms_arr=mct_norms_arr, num_threads=p.num_threads,
+            mesh=mesh))
 
     def _batch_full(row):
-        # with a device, the uniform full-size tiles go through ONE
-        # batched analysis
-        if device is not None:
+        # with a device or a mesh, the uniform full-size tiles go through
+        # ONE batched analysis (sharded over the mesh)
+        if device is not None or mesh is not None:
             run_transforms_device_batched(
                 [t for (_, _, tr, t) in row
-                 if tr.w == cp.t_width and tr.h == cp.t_height])
+                 if tr.w == cp.t_width and tr.h == cp.t_height], mesh=mesh)
 
     # phase 1: build every tile's compressor.  Strip-reader encodes defer
     # construction to the row loop below so memory stays O(tile row).

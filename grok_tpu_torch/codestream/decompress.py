@@ -10,8 +10,9 @@ With a `device`, each tile's HT codeblocks decode there (one launch of the
 device HT decoder a tile) and the synthesis of eligible tiles runs there
 (the port's tile processor), with several uniform tiles in one batched
 call.  The strip decode keeps one tile's synthesis in flight on the card
-(DeferredPlanes) while the next tile's Tier-2 and Tier-1 are issued.  The
-multi-device mesh (ROADMAP A13) is not ported yet.
+(DeferredPlanes) while the next tile's Tier-2 and Tier-1 are issued.  A
+full decode given a mesh (parallel/mesh.py) shards the batched synthesis
+over its devices, on the host route too; strip decodes take no mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..errors import CodestreamError
 from ..image import ColorSpace, GrkImage, ImageComponent
 from ..params import CodingParams, DecompressParams, TileCodingParams, \
     TileComponentCodingParams
+from ..parallel import mesh as pmesh
 from ..tile.geometry import Rect, tile_rect
 from ..tile.processor import (DeferredPlanes, TileDecompressor,
                               acquire_tile, host_backend,
@@ -607,10 +609,11 @@ class CodestreamDecoder:
 
     # ------------------------------------------------------------- decoding
 
-    def decode(self, p: DecompressParams, cache=None) -> GrkImage:
-        if p.mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet: ROADMAP A13")
+    def decode(self, p: DecompressParams, cache=None,
+               mesh=None) -> GrkImage:
+        """Decode the image; `mesh` (p.mesh resolved by
+        parallel.mesh.resolve_mesh, or None) is where the batched
+        synthesis of the uniform full-size tiles shards."""
         if not self._parsed:
             self.parse()
         hi = self.hi
@@ -662,11 +665,18 @@ class CodestreamDecoder:
 
         batched = {}
         # reduce/window always fail per-tile device eligibility later, so
-        # gate here before paying the per-tile Tier-1 work twice
-        if p.backend == "device" and cp.numtiles > 1 \
+        # gate here before paying the per-tile Tier-1 work twice; so does
+        # an sp mesh that cannot row-shard the default tile height (tiles
+        # whose tile-part COD changes the resolutions are checked again
+        # in reconstruct_device_batched)
+        sp = 1 if mesh is None else pmesh.sp_size(mesh)
+        sp_ok = sp == 1 or pmesh.sp_transform_ok(
+            mesh, cp.t_height, cp.tcps[0].tccps[0].numresolutions)
+        if (p.backend == "device" or mesh is not None) \
+                and (cp.numtiles > 1 or sp > 1) and sp_ok \
                 and p.tile_index is None and win is None and reduce_ == 0:
             batched = self._decode_tiles_device_batched(
-                list(tiles), p, img, reduce_)
+                list(tiles), p, img, reduce_, mesh)
 
         for tidx in tiles:
             if tidx in batched:
@@ -758,9 +768,11 @@ class CodestreamDecoder:
             rects.append(tc.resolutions[numres_used - 1].rect)
         return rects
 
-    def _decode_tiles_device_batched(self, tiles, p, img, reduce_):
-        """Batched device synthesis over all uniform full-size tiles.
-        Returns {tidx: (planes, rects)} for the tiles it handled."""
+    def _decode_tiles_device_batched(self, tiles, p, img, reduce_,
+                                     mesh=None):
+        """Batched device synthesis over all uniform full-size tiles,
+        sharded over `mesh` when given.  Returns {tidx: (planes, rects)}
+        for the tiles it handled."""
         cp = self.hi.cp
         hi = self.hi
         img_rect = Rect(hi.siz.xosiz, hi.siz.yosiz, hi.siz.xsiz, hi.siz.ysiz)
@@ -786,7 +798,8 @@ class CodestreamDecoder:
             prepared.append((tidx, tcp, tile, td))
         if not prepared:
             return {}
-        result = reconstruct_device_batched([td for (*_, td) in prepared])
+        result = reconstruct_device_batched([td for (*_, td) in prepared],
+                                            mesh=mesh)
         out = {}
         for (tidx, tcp, tile, td) in prepared:
             if result is not None:

@@ -5,12 +5,15 @@ A wrapper in `grok_tpu_torch.ops` runs its plain PyTorch twin when its
 tensors lie on the CPU, and its kernel when they lie on a CUDA device;
 anything else raises.  Each kernel launch adds one to the wrapper's entry
 in LAUNCHES (a run of the twin does not), so a run can show that the main
-path went through the kernels.
+path went through the kernels.  The slots of a multi-device mesh launch
+from threads of their own (parallel/mesh.py), so the count is taken
+under a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -23,9 +26,19 @@ LAUNCHES: dict[str, int] = dict.fromkeys(
      "ht_decode", "ht_magsgn", "mq_encode", "mq_decode"), 0)
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(counter: str) -> None:
+    """Add one to LAUNCHES[counter]; safe from any thread."""
+    with _COUNT_LOCK:
+        LAUNCHES[counter] += 1
 
 
 def on_card(*tensors: torch.Tensor,
@@ -69,4 +82,4 @@ def launch(counter: str, entry: str, device: torch.device,
         err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *ints,
                                   *extra, stream)
     build.check(entry, err)
-    LAUNCHES[counter] += 1
+    count_launch(counter)

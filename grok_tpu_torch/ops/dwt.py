@@ -141,10 +141,12 @@ def _level_steps(deltas, resno: int):
 
 
 def forward_dwt_batch(x: torch.Tensor, numres: int, reversible: bool = True,
-                      deltas: dict | None = None) -> dict:
+                      deltas: dict | None = None, fwd=fwd_level) -> dict:
     """numres - 1 forward levels on (..., H, W).  Returns
     {(resno, orient): tensor} in the host band layout; with `deltas`
-    (9/7 only, numres >= 2) every band quantized by its step."""
+    (9/7 only, numres >= 2) every band quantized by its step.  `fwd`
+    computes one level (fwd_level's signature): parallel/mesh.py passes
+    its row-sharded level here."""
     nl = numres - 1
     if deltas is not None and nl < 1:
         raise ValueError("no level to quantize in: with numres 1 the "
@@ -154,17 +156,19 @@ def forward_dwt_batch(x: torch.Tensor, numres: int, reversible: bool = True,
     for lev in range(nl):
         resno = nl - lev
         cur, bands[(resno, 1)], bands[(resno, 2)], bands[(resno, 3)] = \
-            fwd_level(cur, reversible, _level_steps(deltas, resno))
+            fwd(cur, reversible, _level_steps(deltas, resno))
     bands[(0, 0)] = cur
     return bands
 
 
 def inverse_dwt_batch(bands: dict, numres: int, shape: tuple[int, int],
                       reversible: bool = True,
-                      deltas: dict | None = None) -> torch.Tensor:
+                      deltas: dict | None = None,
+                      inv=inv_level) -> torch.Tensor:
     """Multi-level inverse DWT back to (..., H, W); with `deltas` (9/7
     only, numres >= 2) the bands are doubled-domain int32, dequantized by
-    their steps."""
+    their steps.  `inv` computes one level (inv_level's signature), as
+    `fwd` of forward_dwt_batch."""
     if deltas is not None and numres < 2:
         raise ValueError("no level to dequantize in: with numres 1 the "
                          "dequantizer runs in ops.mct.ict_inverse_unshift")
@@ -176,7 +180,7 @@ def inverse_dwt_batch(bands: dict, numres: int, shape: tuple[int, int],
     cur = bands[(0, 0)]
     for resno in range(1, numres):
         lh_, lw_ = dims[numres - resno - 1]
-        cur = inv_level(cur, bands[(resno, 1)], bands[(resno, 2)],
-                        bands[(resno, 3)], lh_, lw_, reversible,
-                        _level_steps(deltas, resno))
+        cur = inv(cur, bands[(resno, 1)], bands[(resno, 2)],
+                  bands[(resno, 3)], lh_, lw_, reversible,
+                  _level_steps(deltas, resno))
     return cur

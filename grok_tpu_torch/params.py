@@ -185,8 +185,9 @@ class CompressParams:
     # "auto" (as "native")
     backend: str = "device"
 
-    # multi-device meshes are not ported yet (ROADMAP A13): anything but
-    # None raises NotImplementedError
+    # the devices the sample transforms shard over (parallel/mesh.py): a
+    # Mesh, or an int n for a dp mesh over n devices of the call's device
+    # type; Tier-1 and Tier-2 stay where the backend runs them
     mesh: object | None = None
 
     def validate(self) -> None:
@@ -243,7 +244,7 @@ class DecompressParams:
     apply_icc: bool = False
     num_threads: int = 0
     backend: str = "device"  # as CompressParams.backend
-    mesh: object | None = None  # as CompressParams.mesh
+    mesh: object | None = None  # as CompressParams.mesh (full decodes)
     # resource limit: refuse decodes whose (reduced, windowed) output
     # exceeds this many pixels (0 = library default, 2^32).  A 30 KB
     # stream can legally declare a multi-gigapixel canvas; services
@@ -360,7 +361,9 @@ def from_reference(obj):
     of grok_tpu's params or image modules (or any object whose class name
     and fields match one of this package's params or image classes) is
     rebuilt as that class of grok_tpu_torch, field by field, recursing
-    into nested dataclasses, enums, lists, tuples and dicts.  Other
+    into nested dataclasses, enums, lists, tuples and dicts.  A
+    jax.sharding.Mesh (a "Mesh" with "dp" and "sp" axes) becomes a
+    parallel.mesh.Mesh of the same dp x sp shape over the CPU.  Other
     values, numpy arrays included, are passed on as they are (not
     copied)."""
     from . import image
@@ -379,7 +382,13 @@ def _rebuild(obj, classes: dict):
     if isinstance(obj, dict):
         return {_rebuild(k, classes): _rebuild(v, classes)
                 for k, v in obj.items()}
-    cls = classes.get(type(obj).__name__)
+    name = type(obj).__name__
+    if name == "Mesh" and getattr(obj, "axis_names", None) == ("dp", "sp"):
+        from .parallel.mesh import make_mesh
+
+        dp, sp = obj.shape["dp"], obj.shape["sp"]
+        return make_mesh(dp * sp, dp=dp, sp=sp, devices=["cpu"] * (dp * sp))
+    cls = classes.get(name)
     if cls is None:
         return obj
     if issubclass(cls, enum.Enum):

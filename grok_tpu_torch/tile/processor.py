@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import pipeline
+from ..parallel import mesh as pmesh
 from ..params import (
     CodingParams,
     QuantStyle,
@@ -303,14 +304,16 @@ def _uniform_quant(tcp) -> bool:
 
 class TileCompressor:
     """`device` (a torch.device, or None for the host path) is where the
-    transforms of eligible tiles run; `backend` is the Tier-1 backend (see
-    host_backend)."""
+    transforms of eligible tiles run, and `mesh` (a parallel.mesh.Mesh or
+    None) the devices they shard over when its sp axis takes the tile;
+    `backend` is the Tier-1 backend (see host_backend)."""
 
     def __init__(self, tile: Tile, tcp: TileCodingParams, image,
                  cp: CodingParams, device: torch.device | None,
                  backend: str = "native", mct_norms_arr=None,
-                 num_threads: int = 0):
+                 num_threads: int = 0, mesh=None):
         self.device = device
+        self.mesh = mesh
         self.tile = tile
         self.tcp = tcp
         self.image = image
@@ -337,8 +340,6 @@ class TileCompressor:
         tiles; everything else uses the host numpy path."""
         tile, tcp, image = self.tile, self.tcp, self.image
         t0 = tcp.tccps[0]
-        if self.device is None:
-            return False
         nl = t0.numresolutions - 1
         align = 1 << nl
         for compno, tc in enumerate(tile.comps):
@@ -360,8 +361,12 @@ class TileCompressor:
     def run_transforms(self) -> None:
         if getattr(self, "_transforms_done", False):
             return  # already produced by the batched call
-        if self.device_eligible():
-            _analyse([self])
+        if self.device is not None and self.device_eligible():
+            mesh = self.mesh
+            if mesh is not None and (pmesh.sp_size(mesh) == 1
+                                     or not _sp_fits(mesh, [self])):
+                mesh = None  # a lone tile shards over sp only
+            _analyse([self], mesh)
             return
         HOST_PATH_TILES["encode"] += 1
         self._transforms_done = True
@@ -1779,10 +1784,26 @@ def _deltas(tile, reversible: bool) -> tuple:
                  for res in tile.comps[0].resolutions for band in res.bands)
 
 
-def _analyse(tcs: list[TileCompressor]) -> None:
-    """Device analysis of a uniform batch of tiles; installs each tile
-    component's bands (quantized on the 9/7 path): device tensors for a
-    tile with card Tier-1, host int32 arrays otherwise."""
+def _sp_fits(mesh, tiles) -> bool:
+    """Whether the mesh's sp axis can row-shard these uniform tiles."""
+    t = tiles[0]
+    return pmesh.sp_transform_ok(mesh, t.tile.comps[0].rect.h,
+                                 t.tcp.tccps[0].numresolutions)
+
+
+def _pad_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """(C, B, ...) padded to a multiple of the mesh's dp by repeating the
+    last tile (the padding is dropped on gather)."""
+    pad = (-x.shape[1]) % pmesh.dp_size(mesh)
+    return torch.cat([x, x[:, -1:].expand(-1, pad, *x.shape[2:])], dim=1) \
+        if pad else x
+
+
+def _analyse(tcs: list[TileCompressor], mesh=None) -> None:
+    """Device analysis of a uniform batch of tiles, sharded over `mesh`
+    when given; installs each tile component's bands (quantized on the
+    9/7 path): tensors on the tiles' device for a tile with card Tier-1,
+    host int32 arrays otherwise."""
     first = tcs[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
@@ -1797,11 +1818,15 @@ def _analyse(tcs: list[TileCompressor]) -> None:
 
     stack = np.array([[plane(t, c) for t in tcs] for c in range(ncomp)],
                      dtype=np.int32)  # (C, B, H, W)
-    bands = pipeline.analysis(
-        torch.from_numpy(stack).to(first.device),
-        numres=first.tcp.tccps[0].numresolutions, reversible=reversible,
-        mct=first.tcp.mct, prec=comp0.prec, sgnd=comp0.sgnd,
-        deltas=_deltas(first.tile, reversible))
+    x = torch.from_numpy(stack).to(first.device or "cpu")
+    kw = dict(numres=first.tcp.tccps[0].numresolutions,
+              reversible=reversible, mct=first.tcp.mct, prec=comp0.prec,
+              sgnd=comp0.sgnd, deltas=_deltas(first.tile, reversible))
+    if mesh is None:
+        bands = pipeline.analysis(x, **kw)
+    else:  # the summed energy is not used here, as in the reference
+        bands, _ = pmesh.sharded_analysis(mesh, _pad_batch(x, mesh), **kw)
+        bands = {k: v[:, :len(tcs)] for k, v in bands.items()}
     keep = [t.backend == "device" and _card_t1(t.tcp) for t in tcs]
     host = ({k: v.cpu().numpy() for k, v in bands.items()}
             if not all(keep) else None)
@@ -1813,24 +1838,36 @@ def _analyse(tcs: list[TileCompressor]) -> None:
         t._transforms_done = True
 
 
-def run_transforms_device_batched(tcs: list[TileCompressor]) -> bool:
-    """One device analysis over a batch of uniform tiles, the tile-batch
-    axis a multi-device mesh would shard over (ROADMAP A13).  Returns
-    False, and does nothing, unless there are two or more tiles and all
-    are eligible with one geometry and one set of coding parameters."""
-    if len(tcs) < 2 or not _uniform_batch(tcs, TileCompressor.device_eligible):
+def run_transforms_device_batched(tcs: list[TileCompressor],
+                                  mesh=None) -> bool:
+    """One device analysis over a batch of uniform tiles.  Returns False,
+    and does nothing, unless there are two or more tiles (one with an sp
+    mesh) and all are eligible with one geometry and one set of coding
+    parameters.
+
+    With `mesh`, the tile batch shards over the mesh's "dp" axis (padded
+    to a dp multiple by repeating the last tile, the padding dropped on
+    gather) and, with sp > 1, each tile's rows over "sp" (halo-exchange
+    DWT), so that one tile is a batch too; a tile height that
+    sp_transform_ok refuses returns False (the per-tile path)."""
+    sp = 1 if mesh is None else pmesh.sp_size(mesh)
+    if len(tcs) < (1 if sp > 1 else 2) \
+            or not _uniform_batch(tcs, TileCompressor.device_eligible):
         return False
-    _analyse(tcs)
+    if mesh is not None and not _sp_fits(mesh, tcs):
+        return False
+    _analyse(tcs, mesh)
     return True
 
 
 def _synthesise(tds: list["TileDecompressor"],
-                defer: bool = False):
-    """Device synthesis of a uniform batch of tiles: per tile, its
-    component planes.  Bands the Tier-1 decoders wrote on the device are
-    taken as they are; host bands go up.  With `defer` (one tile) the
-    result is a DeferredPlanes with the synthesis and its copy back still
-    in flight."""
+                defer: bool = False, mesh=None):
+    """Device synthesis of a uniform batch of tiles, sharded over `mesh`
+    when given: per tile, its component planes.  Bands the Tier-1
+    decoders wrote on the device are taken as they are; host bands go up
+    (to the mesh from the host where the tiles have no device).  With
+    `defer` (one tile, no mesh) the result is a DeferredPlanes with the
+    synthesis and its copy back still in flight."""
     first = tds[0]
     comp0 = first.image.comps[0]
     ncomp = len(first.tile.comps)
@@ -1847,27 +1884,36 @@ def _synthesise(tds: list["TileDecompressor"],
             stack = np.array(
                 [[t._band_arrays[(c,) + key] for t in tds]
                  for c in range(ncomp)], dtype=np.int32)
-            bands[key] = torch.from_numpy(stack).to(first.device)
+            bands[key] = torch.from_numpy(stack).to(first.device or "cpu")
     r = first.tile.comps[0].rect
-    out = pipeline.synthesis(
-        bands, numres=first.tcp.tccps[0].numresolutions,
-        reversible=reversible, mct=first.tcp.mct, prec=comp0.prec,
-        sgnd=comp0.sgnd, shape=(r.h, r.w),
-        deltas=_deltas(first.tile, reversible))
+    kw = dict(numres=first.tcp.tccps[0].numresolutions,
+              reversible=reversible, mct=first.tcp.mct, prec=comp0.prec,
+              sgnd=comp0.sgnd, shape=(r.h, r.w),
+              deltas=_deltas(first.tile, reversible))
+    if mesh is None:
+        out = pipeline.synthesis(bands, **kw)
+    else:
+        out = pmesh.sharded_synthesis(
+            mesh, {k: _pad_batch(v, mesh) for k, v in bands.items()},
+            **kw)[:, :len(tds)]
     if defer:
         return DeferredPlanes(out)
     out = out.cpu().numpy()
     return [[out[c, bi] for c in range(ncomp)] for bi in range(len(tds))]
 
 
-def reconstruct_device_batched(tds: list["TileDecompressor"]):
-    """Device synthesis over a batch of uniform tiles (the mirror of
-    run_transforms_device_batched).  Returns {id(td): planes}, or None if
-    the batch is not eligible."""
-    if len(tds) < 2 or not _uniform_batch(tds,
-                                          TileDecompressor._device_eligible):
+def reconstruct_device_batched(tds: list["TileDecompressor"], mesh=None):
+    """Device synthesis over a batch of uniform tiles, sharded over `mesh`
+    when given (the mirror of run_transforms_device_batched).  Returns
+    {id(td): planes}, or None if the batch is not eligible."""
+    sp = 1 if mesh is None else pmesh.sp_size(mesh)
+    if len(tds) < (1 if sp > 1 else 2) \
+            or not _uniform_batch(tds, TileDecompressor._device_eligible):
         return None
-    return {id(t): planes for t, planes in zip(tds, _synthesise(tds))}
+    if mesh is not None and not _sp_fits(mesh, tds):
+        return None
+    return {id(t): planes
+            for t, planes in zip(tds, _synthesise(tds, mesh=mesh))}
 
 
 # ---------------------------------------------------------------------------
@@ -2280,8 +2326,8 @@ class TileDecompressor:
         self._dev_bands = None
         if self._run_t1_tile_native():
             return
-        if self.backend == "device" and _card_t1(self.tcp) \
-                and self._device_eligible():
+        if self.backend == "device" and self.device is not None \
+                and _card_t1(self.tcp) and self._device_eligible():
             # the device decoders write into these; the synthesis takes
             # them
             self._dev_bands = {
@@ -2451,8 +2497,6 @@ class TileDecompressor:
         if self.reduce or self.window is not None:
             return False
         t0 = tcp.tccps[0]
-        if self.device is None:
-            return False
         nl = t0.numresolutions - 1
         align = 1 << nl
         for compno, tc in enumerate(tile.comps):
@@ -2478,7 +2522,7 @@ class TileDecompressor:
         DeferredPlanes whose synthesis and copy back are still in flight
         on the card, so the caller can run the NEXT tile's host entropy
         stages meanwhile (decode-side StripCache-overlap parity)."""
-        if not self._device_eligible():
+        if self.device is None or not self._device_eligible():
             return None
         if defer:
             return _synthesise([self], defer=True)

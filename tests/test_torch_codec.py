@@ -264,14 +264,3 @@ def test_host_backend_and_launch_counts(rng, host_tiles):
         == grok_tpu.compress(img, CompressParams(backend="native",
                                                  numresolution=3))
     assert all(v == 0 for v in LAUNCHES.values())
-
-
-def test_mesh_not_ported():
-    arr = np.zeros((16, 16), np.uint8)
-    with pytest.raises(NotImplementedError, match="A13"):
-        _port_compress(GrkImage.from_array(arr), mesh=2)
-    data = grok_tpu.compress(GrkImage.from_array(arr),
-                             CompressParams(backend="native"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        grok_tpu_torch.decompress(data, port(DecompressParams(mesh=2)),
-                                  device="cpu")

@@ -586,3 +586,96 @@ def test_deferred_strip_decode_on_the_card(gen, monkeypatch):
     # tile k of a 4-tile row is read after tile k+1's launch; the row's
     # last tile after its own
     assert seen == [k + 2 if k % 4 < 3 else k + 1 for k in range(12)]
+
+
+# ------------------------------------------------------------- the mesh
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sp", [2, 4, 8])
+@pytest.mark.parametrize("h,w", [(64, 37), (128, 96), (2160, 257)])
+def test_sharded_levels_on_the_card(gen, sp, h, w):
+    """Each sharded level (cuda:0 repeated sp times) equals the level
+    kernel on the whole tensor bit for bit, one launch a shard; 64 rows
+    at sp 8 is the deepest shard sp_transform_ok allows."""
+    from grok_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.Mesh([[torch.device("cuda", 0)] * sp])
+    x = _rand(gen, (3, 1, h, w), -512, 512)
+    xf = _normal(gen, (3, 1, h, w), 600.0)
+    for inp, rev, st in ((x, True, None), (xf, False, None),
+                         (xf, False, (0.0, 0.61, 0.59, 1.13))):
+        fwd = dwt.fwd_level(inp, rev, st)
+        inb = [2 * b + torch.sign(b) if s > 0 else b
+               for b, s in zip(fwd, st or (0,) * 4)]
+        want = dwt.inv_level(*inb, h, w, rev, st)
+        reset_launches()
+        if rev:
+            got = pmesh.sp_sharded_fwd_53_level(mesh, inp)
+            back = pmesh.sp_sharded_inv_53_level(mesh, *inb)
+        else:
+            got = pmesh.sp_sharded_fwd_97_level(mesh, inp, st)
+            back = pmesh.sp_sharded_inv_97_level(mesh, *inb, steps=st)
+        name = "53" if rev else "97"
+        assert LAUNCHES[f"fwd{name}_level"] == sp
+        assert LAUNCHES[f"inv{name}_level"] == sp
+        assert all(_bits_equal(g, r) for g, r in zip(got, fwd))
+        assert _bits_equal(back, want)
+
+
+def _mesh_codec_case(mesh):
+    """Lossless HT in one tile, and lossy MQ in six tiles, through
+    `mesh`: the single-device card bytes and decodes, each level kernel
+    launched once a shard a level (one tile on a dp-only mesh is not
+    sharded)."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+    from grok_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(7)
+    arr = rng.integers(0, 256, (256, 192, 3)).astype(np.uint8)
+    img = GrkImage.from_array(arr)
+    sp = pmesh.sp_size(mesh)
+    for kw, shards in ((dict(numresolution=4, ht=True),
+                        mesh.size if sp > 1 else 1),
+                       (dict(numresolution=3, tile_size=(64, 128),
+                             irreversible=True, layer_rates=[20]),
+                        mesh.size)):
+        one = grok_tpu_torch.compress(img, CompressParams(**kw))
+        want = grok_tpu_torch.decompress(one).to_array()
+        reset_launches()
+        many = grok_tpu_torch.compress(img, CompressParams(mesh=mesh, **kw))
+        assert many == one
+        out = grok_tpu_torch.decompress(many, DecompressParams(mesh=mesh))
+        assert np.array_equal(out.to_array(), want)
+        level = "fwd53_level" if "ht" in kw else "fwd97_level"
+        assert LAUNCHES[level] == shards * (kw["numresolution"] - 1)
+    assert np.array_equal(grok_tpu_torch.decompress(
+        grok_tpu_torch.compress(img, CompressParams(
+            mesh=mesh, numresolution=4, ht=True))).to_array(), arr)
+
+
+def test_mesh_codec_on_a_repeated_card(gen):
+    from grok_tpu_torch.parallel import mesh as pmesh
+
+    card = torch.device("cuda", 0)
+    _mesh_codec_case(pmesh.Mesh([[card, card], [card, card]]))
+
+
+def test_mesh_codec_over_distinct_cards(gen):
+    """The same over two distinct cards (the halo rows then move between
+    cards); an int mesh is the visible cards, never more."""
+    from grok_tpu_torch.parallel import mesh as pmesh
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="visible"):
+        pmesh.resolve_mesh(n + 1, "cuda")
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(2)]
+    _mesh_codec_case(pmesh.Mesh([cards]))
+    _mesh_codec_case(pmesh.resolve_mesh(2, "cuda"))

@@ -119,6 +119,38 @@ def test_variants_cli_and_color_import_no_jax_or_pillow():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+_NO_JAX_MESH = """
+import json, sys
+before = set(sys.modules)
+import numpy as np
+import grok_tpu_torch
+from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
+from grok_tpu_torch.parallel import mesh as pm
+pm.dryrun_multichip(4, ["cpu"] * 4)
+arr = np.random.default_rng(0).integers(0, 256, (64, 64, 3)).astype(np.uint8)
+m = pm.make_mesh(4, dp=2, sp=2, devices=["cpu"] * 4)
+for p in (dict(mesh=m, numresolution=3, ht=True),
+          dict(mesh=2, irreversible=True, numresolution=3, ht=True)):
+    data = grok_tpu_torch.compress(GrkImage.from_array(arr),
+                                   CompressParams(**p), device="cpu")
+    out = grok_tpu_torch.decompress(data, DecompressParams(mesh=p["mesh"]),
+                                    device="cpu")
+    assert out.to_array().shape == arr.shape
+print(json.dumps(sorted(m for m in set(sys.modules) - before
+                        if m.split(".")[0] in ("jax", "jaxlib", "grok_tpu"))))
+"""
+
+
+def test_mesh_path_imports_no_jax():
+    """The mesh path on the CPU (the dry run; a dp x sp and an int mesh
+    through compress and decompress on the twins) loads no jax and no
+    grok_tpu module."""
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_MESH], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("where", ["checkout", "bare"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     """chip_smoke.py exits nonzero, printing no result line, where torch
