@@ -6,6 +6,8 @@
                                             # from the checkout at PATH
     python3 chip_smoke.py --dwt97-times PATH  # only the 9/7 level kernels'
                                               # check and times, likewise
+    python3 chip_smoke.py --ht-times PATH   # only the HT decode kernels'
+                                            # checks and times, likewise
     python3 chip_smoke.py --gigapixel       # only the BASELINE config 5
                                             # run (cell (e))
 
@@ -23,7 +25,9 @@ streams, the widest legal shapes and case (a)'s 70 codeblocks), times
 kernel and twin (the transform kernels at cases (b) and (d)'s level-1
 shapes, the 9/7 level and ICT kernels also by the device's own time,
 torch.profiler's kernel records and a CUDA graph of 16 launches, the 9/7
-levels at each of case (d)'s four level shapes and summed; the four HT kernels on case (b)'s codeblocks, the two MQ kernels
+levels at each of case (d)'s four level shapes and summed; the four HT kernels on case (b)'s codeblocks, HT destuffing and
+MagSgn also by the device's own time there and on one of cell (e)'s
+1024x1024 tiles (its 259 codeblocks, one launch), the two MQ kernels
 on three launch shapes: case (c)'s 3,360 codeblocks, its tile 0 and case
 (a)'s blocks, each with a round-trip check), then drives
 grok_tpu_torch.compress / decompress with their defaults (the card) on
@@ -483,12 +487,16 @@ def check_ht(ht_encode, ht_decode, ht_tables, cases):
 
 
 def ht_population(arr, pipeline):
-    """Case (b)'s device-coded codeblocks: its bands from the device
-    analysis, cut into the codec's 64x64 grid, even-sized blocks only."""
+    """An image's device-coded HT codeblocks: its bands from the device
+    analysis (6 resolutions, lossless, RCT for RGB), cut into the codec's
+    64x64 grid, even-sized blocks only; one HT launch's blocks each way:
+    case (b)'s frame, or one of cell (e)'s tiles."""
+    a = arr.astype(np.int32)
     x = torch.from_numpy(np.ascontiguousarray(
-        np.moveaxis(arr.astype(np.int32), -1, 0)[:, None])).cuda()
-    bands = pipeline.analysis(x, numres=6, reversible=True, mct=1, prec=8,
-                              sgnd=False)
+        a[None, None] if a.ndim == 2 else np.moveaxis(a, -1, 0)[:, None]
+    )).cuda()
+    bands = pipeline.analysis(x, numres=6, reversible=True,
+                              mct=int(a.ndim == 3), prec=8, sgnd=False)
     blocks = []
     for v in bands.values():
         for c in range(v.shape[0]):
@@ -511,13 +519,15 @@ def time_once(fn) -> float:
     return 1e3 * (time.perf_counter() - t)
 
 
-def time_ht(blocks, ht_encode, ht_decode, err):
+def time_ht(blocks, tile_blocks, ht_encode, ht_decode, err):
     """The HT kernels and their twins on case (b)'s codeblock population:
     each kernel per launch and amortised, the wrapper with its copies and
     host work, the twin once on the card's tensors; bounds from the bytes
     of the work (encode: 4 B a coefficient in, the segment bytes out;
     destuff: the segment bytes in; decode: 4 B a sample out; scratch not
-    counted).  Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    counted); then time_ht_shape on the population and on `tile_blocks`
+    (one of cell (e)'s tiles), whose CUDA-graph times are destuff's and
+    MagSgn's ms.  Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
     dev = torch.device("cuda", torch.cuda.current_device())
     cpu = [b.cpu() for b in blocks]
     samples = sum(b.numel() for b in blocks)
@@ -539,10 +549,7 @@ def time_ht(blocks, ht_encode, ht_decode, err):
     k_all = time_ms(lambda: ht_decode.launch_decode(dargs, dev))
     w_dec = time_once(lambda: ht_decode.decode_cblks_ht(items, dev))
     p_dec = time_once(lambda: ht_decode.decode_cblks_ht_plain(items, dev))
-    want = ht_decode.decode_cblks_ht_plain(items, "cpu")
-    err["ht_magsgn"] = max([err["ht_magsgn"]] + [
-        max_err(o.cpu(), w) for o, w in zip(outs, want)])
-    check_stages(ht_decode, items, err, dargs)
+    # (time_ht_shape below holds the decode to the twin, stage by stage)
     # destuffed bytes of the MagSgn streams, and of the MEL and VLC ones
     bits = dargs[3].cpu().numpy()[:, 1::2]
     ms_bytes = int(((bits[:, 0] + 7) // 8).sum())
@@ -568,7 +575,111 @@ def time_ht(blocks, ht_encode, ht_decode, err):
             f"wrapper (copies, descriptors, slicing) {wrapper:.1f} ms; twin "
             f"on the card {plain:.1f} ms; bound {bound:.4f} ms (bytes)")
         times[name] = (k_amort, plain, bound, "bytes")
+    # destuffing and MagSgn also by the device's own time, on case (b)'s
+    # launch and on one of cell (e)'s tiles
+    for name, (graph, *_) in time_ht_shape(
+            "case (b)", blocks, ht_encode, ht_decode, err).items():
+        times[name] = (graph,) + times[name][1:]
+    time_ht_shape("cell (e) tile", tile_blocks, ht_encode, ht_decode, err)
     return times
+
+
+def giga_tile_blocks(pipeline):
+    """The HT codeblocks of cell (e)'s first 1024x1024 tile, as its codec
+    launches them (one launch a tile each way)."""
+    return ht_population(giga_content(0, GIGA_TILE, n=GIGA_TILE), pipeline)
+
+
+def time_ht_shape(label, blocks, ht_encode, ht_decode, err) -> dict:
+    """The three HT decode launches on one launch shape: the blocks coded
+    by the card, decoded, and held to the twin (stages and samples); then
+    for grk_ht_destuff and grk_ht_magsgn (and grk_ht_decode, for context)
+    the device's own time (device_ms: torch.profiler's kernel records and
+    a CUDA graph of QUEUED launches) beside the CUDA-event times (time_ms:
+    per launch and amortised), each against its bound from this launch's
+    bytes (destuff: the segments in, the destuffed streams out; chains:
+    the suffix streams in, 5 B a quad out; MagSgn: the MagSgn streams and
+    5 B a quad in, 4 B a sample out).  Returns {name: (graph ms, per-launch
+    ms, amortised ms, bound ms)}."""
+    from grok_tpu_torch.kernels import launch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    segs = ht_encode.encode_cblks_ht(blocks)
+    items = [(seg, *b.shape) for (seg, _), b in zip(segs[0], blocks)]
+    outs = [torch.empty(b.shape, dtype=torch.int32, device=dev)
+            for b in blocks]
+    dargs = ht_decode.decode_args(items, dev, outs)
+    ht_decode.launch_decode(dargs, dev)
+    want = ht_decode.decode_cblks_ht_plain(items, "cpu")
+    check_stages(ht_decode, items, err, dargs)
+    n = len(items)
+    samples = sum(b.numel() for b in blocks)
+    seg_bytes = sum(len(seg) for seg, _, _ in items)
+    bits = dargs[3].cpu().numpy()[:, 1::2]
+    ms_bytes = int(((bits[:, 0] + 7) // 8).sum())
+    suffix_bytes = int(((bits[:, 1:] + 7) // 8).sum())
+    quads = samples // 4
+
+    def destuff():  # longest already holds the batch's: atomicMax keeps it
+        launch("ht_destuff", "grk_ht_destuff", dev, dargs[:5], (n,))
+
+    result = {}
+    for name, fn, kernel, nbytes in (
+            ("ht_destuff", destuff, "ht_destuff_kernel",
+             seg_bytes + ms_bytes + suffix_bytes),
+            ("ht_decode", lambda: ht_decode.launch_chains(dargs, dev),
+             "ht_decode_kernel", suffix_bytes + 5 * quads),
+            ("ht_magsgn", lambda: ht_decode.launch_magsgn(dargs, dev),
+             "ht_magsgn_kernel", ms_bytes + 5 * quads + 4 * samples)):
+        single, amort = time_ms(fn)
+        prof, graph = device_ms(fn, kernel)
+        bound = 1e3 * nbytes / PEAK_BYTES_S
+        log(f"time {name} device {label}: {n} codeblocks, {samples} "
+            f"samples, {seg_bytes} segment B: {fmt_ms(prof)} ms a launch "
+            f"(profiler), {graph:.4f} ms a launch in a CUDA graph of "
+            f"{QUEUED} ({bound / graph:.0%} of the bound); {single:.4f} ms "
+            f"per launch, {amort:.4f} ms amortised (CUDA events); bound "
+            f"{bound:.4f} ms on {nbytes} B (bytes)")
+        result[name] = (graph, single, amort, bound)
+    err["ht_magsgn"] = max([err["ht_magsgn"]] + [
+        max_err(o.cpu(), w) for o, w in zip(outs, want)])
+    return result
+
+
+def ht_times_only(tree: str) -> int:
+    """`chip_smoke.py --ht-times TREE`: only the HT decode kernels, from
+    the grok_tpu_torch of the checkout at TREE (for A/B runs against
+    another tree unpacked beside this one): ptxas's lines, the HT kernels
+    against their twins on tests/torch_ht_cases.py's inputs (check_ht),
+    and time_ht_shape on case (b)'s launch and one of cell (e)'s tiles,
+    each held to the twin."""
+    sys.path.insert(0, os.path.abspath(tree))
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import grok_tpu_torch
+    import torch_ht_cases
+    from grok_tpu_torch.kernels import build
+    from grok_tpu_torch.ops import ht_decode, ht_encode, pipeline
+    from grok_tpu_torch.t1 import ht_tables
+
+    log(f"tree {tree}: grok_tpu_torch from "
+        f"{os.path.dirname(os.path.abspath(grok_tpu_torch.__file__))}")
+    log(run(["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"]).splitlines()[0])
+    report = build.build()
+    build.load()
+    for name, lines in ptxas_lines(report, HT_DECODE_KERNELS).items():
+        log(f"ptxas {name}: {'; '.join(lines)}")
+    err = check_ht(ht_encode, ht_decode, ht_tables, torch_ht_cases)
+    for label, blocks in (
+            ("case (b)", ht_population(make_rgb(*UHD, seed=SEED), pipeline)),
+            ("cell (e) tile", giga_tile_blocks(pipeline))):
+        time_ht_shape(label, blocks, ht_encode, ht_decode, err)
+    log(f"HT kernels vs twin max abs err: {err}")
+    if any(err.values()):
+        raise AssertionError(f"the HT kernels disagree with the twins: "
+                             f"{err}")
+    return 0
 
 
 
@@ -806,6 +917,9 @@ def time_mq(shapes, mq_encode, mq_decode, err):
     pop = results[0][0]
     return {name: (pop[name][0], plain, pop[name][1], "bytes")
             for name, plain in (("mq_encode", p_enc), ("mq_decode", p_dec))}
+
+
+HT_DECODE_KERNELS = ("ht_destuff_kernel", "ht_magsgn_kernel")
 
 
 def ptxas_lines(report: str, kernels) -> dict:
@@ -2137,6 +2251,8 @@ def main() -> int:
         return mq_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
     if sys.argv[1:2] == ["--dwt97-times"]:
         return dwt97_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
+    if sys.argv[1:2] == ["--ht-times"]:
+        return ht_times_only(sys.argv[2] if len(sys.argv) > 2 else ".")
     if sys.argv[1:2] == ["--gigapixel"]:
         return gigapixel_only()
     import grok_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -2164,7 +2280,7 @@ def main() -> int:
     log(report.strip())
     for name, lines in ptxas_lines(report, (
             "mq_encode_kernel", "mq_decode_kernel", "fwd97_level_kernel",
-            "inv97_level_kernel")).items():
+            "inv97_level_kernel") + HT_DECODE_KERNELS).items():
         log(f"ptxas {name}: {'; '.join(lines)}")
     t0 = time.perf_counter()
     from grok_tpu_torch.tile import processor  # builds the native coder
@@ -2211,7 +2327,8 @@ def main() -> int:
         lossy_times[name] = (ms,) + lossy_times[name][1:]
     times.update(lossy_times)
     uhd = make_rgb(*UHD, seed=SEED)
-    times.update(time_ht(ht_population(uhd, pipeline), ht_encode, ht_decode,
+    times.update(time_ht(ht_population(uhd, pipeline),
+                         giga_tile_blocks(pipeline), ht_encode, ht_decode,
                          err))
     phase("transform and HT kernel times")
     rgb_c = make_rgb(2048, 2048, SEED)

@@ -139,7 +139,9 @@ def decode_cblks_ht(items, device, out=None):
 def decode_args(items, device: torch.device, out):
     """The kernels' arguments: (desc, joined segments, scratch, streams,
     longest, rho, umax) on the device and the widest quad row, writing
-    items[i] into out[i], which must outlive the launches."""
+    items[i] into out[i], which must outlive the launches.  The kernels
+    read whole aligned 16-byte chunks: the joined segments are padded with
+    zeros to whole chunks, and rho and umax have 16 bytes to spare."""
     data, desc = join_segments(items)
     desc[:, 0] = [o.data_ptr() for o in out]
     desc[:, 1] = [o.stride(0) for o in out]
@@ -148,14 +150,16 @@ def decode_args(items, device: torch.device, out):
     quads = (desc[:, 2] // 2) * (desc[:, 3] // 2)
     desc[:, 7] = np.cumsum(quads) - quads
     nq = int(quads.sum())
+    chunks = np.zeros(-(-len(data) // 16) * 16, np.uint8)
+    chunks[:len(data)] = data
     return (torch.from_numpy(desc).to(device),
-            torch.from_numpy(data).to(device),
+            torch.from_numpy(chunks).to(device),
             torch.empty(int(words.sum()), dtype=torch.int32, device=device),
             torch.empty((len(items), len(STREAMS)), dtype=torch.int64,
                         device=device),
             torch.empty(1, dtype=torch.int64, device=device),
-            torch.empty(nq, dtype=torch.uint8, device=device),
-            torch.empty(nq, dtype=torch.int32, device=device),
+            torch.empty(nq + 16, dtype=torch.uint8, device=device),
+            torch.empty(nq + 4, dtype=torch.int32, device=device),
             int(desc[:, 3].max()) // 2)
 
 

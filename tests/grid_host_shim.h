@@ -1,7 +1,8 @@
 // Host emulation of the CUDA features the 2-D transform kernels
-// (grok_tpu_torch/csrc/dwt97_level.cu, ict.cu) use, so that their sources
-// compile with g++ and run on the CPU in
-// tests/test_torch_dwt97_host_kernels.py.  A CTA is blockDim.x * blockDim.y
+// (grok_tpu_torch/csrc/dwt97_level.cu, ict.cu) and the HT decode kernels
+// (ht_decode.cu) use, so that their sources compile with g++ and run on the
+// CPU in tests/test_torch_dwt97_host_kernels.py and
+// tests/test_torch_ht_host_kernels.py.  A CTA is blockDim.x * blockDim.y
 // fibers (ucontext) on one host thread, and the grid's CTAs run in order: a
 // fiber runs until it reaches a barrier, __syncthreads being one of all the
 // CTA's fibers and __syncwarp one of a warp's 32, and the warp shuffles go
@@ -15,7 +16,10 @@
 // copy is done when it is issued.  The float intrinsics are the plain
 // IEEE operations: the test compiles with -ffp-contract=off, so none is
 // fused into a multiply-add; the conversions saturate and send NaN to 0, as
-// the card's do.
+// the card's do.  The warp votes and reduction (__ballot_sync,
+// __any_sync, __reduce_add_sync) go through the shuffles' array too; atomicMax is a
+// plain read-modify-write, since one fiber runs at a time; the integer
+// intrinsics are their definitions.
 #pragma once
 
 #include <ucontext.h>
@@ -48,7 +52,7 @@ static Idx threadIdx;  // the running fiber's
 static Idx blockIdx;
 static unsigned g_tid;  // the running fiber's linear index in the CTA
 static dim3 gridDim, blockDim;
-static std::vector<uint32_t> g_lanes;  // a word a thread, for shuffles
+static std::vector<uint64_t> g_lanes;  // a value a thread, for shuffles
 
 struct Fiber {
   ucontext_t ctx;
@@ -118,6 +122,9 @@ struct alignas(16) float4 {
 struct alignas(8) int2 {
   int x, y;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 static inline float2 make_float2(float x, float y) { return {x, y}; }
 static inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
@@ -129,21 +136,101 @@ static inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
   arrive(g_warps[g_tid / 32]);
 }
 
-// lane `src` of this thread's warp's v, or the thread's own v when `src`
-// lies outside the warp (as __shfl_up_sync / __shfl_down_sync give it)
-static inline float shuffle(float v, int src) {
+// lane `src` of this thread's warp's v (a value of at most 8 bytes), or the
+// thread's own v when `src` lies outside the warp (as __shfl_up_sync /
+// __shfl_down_sync give it)
+template <class T>
+static inline T shuffle(T v, int src) {
+  static_assert(sizeof(T) <= sizeof(uint64_t));
   const unsigned base = g_tid / 32 * 32;
-  g_lanes[g_tid] = std::bit_cast<uint32_t>(v);
+  uint64_t u = 0;
+  std::memcpy(&u, &v, sizeof(T));
+  g_lanes[g_tid] = u;
   __syncwarp();
-  const uint32_t r = g_lanes[src >= 0 && src < 32 ? base + src : g_tid];
+  const uint64_t r = g_lanes[src >= 0 && src < 32 ? base + src : g_tid];
   __syncwarp();
-  return std::bit_cast<float>(r);
+  T out;
+  std::memcpy(&out, &r, sizeof(T));
+  return out;
 }
-static inline float __shfl_up_sync(unsigned, float v, unsigned d) {
+template <class T>
+static inline T __shfl_up_sync(unsigned, T v, unsigned d) {
   return shuffle(v, static_cast<int>(g_tid % 32) - static_cast<int>(d));
 }
-static inline float __shfl_down_sync(unsigned, float v, unsigned d) {
+template <class T>
+static inline T __shfl_down_sync(unsigned, T v, unsigned d) {
   return shuffle(v, static_cast<int>(g_tid % 32 + d));
+}
+template <class T>
+static inline T __shfl_sync(unsigned, T v, int src) {
+  return shuffle(v, src & 31);
+}
+static inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned base = g_tid / 32 * 32;
+  g_lanes[g_tid] = pred != 0;
+  __syncwarp();
+  unsigned m = 0;
+  for (unsigned i = 0; i < 32; ++i)
+    if (g_lanes[base + i]) m |= 1u << i;
+  __syncwarp();
+  return m;
+}
+static inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0;
+}
+template <class T>
+static inline T __reduce_add_sync(unsigned, T v) {
+  static_assert(sizeof(T) == 4);
+  const unsigned base = g_tid / 32 * 32;
+  g_lanes[g_tid] = static_cast<uint32_t>(v);
+  __syncwarp();
+  uint32_t sum = 0;  // wraps, as the card's
+  for (unsigned i = 0; i < 32; ++i)
+    sum += static_cast<uint32_t>(g_lanes[base + i]);
+  __syncwarp();
+  return static_cast<T>(sum);
+}
+
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline int __clz(int x) {
+  return x ? __builtin_clz(static_cast<unsigned>(x)) : 32;
+}
+static inline int __clzll(long long x) {
+  return x ? __builtin_clzll(static_cast<unsigned long long>(x)) : 64;
+}
+static inline int __ffs(int x) { return __builtin_ffs(x); }
+// byte s<4i+2:4i> of the eight bytes y:x is byte i of the result
+static inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t b = (static_cast<uint64_t>(y) << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= static_cast<unsigned>((b >> (8 * ((s >> (4 * i)) & 7))) & 0xFF)
+         << (8 * i);
+  return r;
+}
+static inline unsigned __funnelshift_r(unsigned lo, unsigned hi,
+                                       unsigned shift) {
+  return static_cast<unsigned>(
+      ((static_cast<uint64_t>(hi) << 32) | lo) >> (shift & 31));
+}
+static inline unsigned __funnelshift_l(unsigned lo, unsigned hi,
+                                       unsigned shift) {
+  return static_cast<unsigned>(
+      (((static_cast<uint64_t>(hi) << 32) | lo) << (shift & 31)) >> 32);
+}
+template <class T>
+static inline T atomicMax(T* p, T v) {
+  const T old = *p;
+  if (v > old) *p = v;
+  return old;
+}
+template <class T>
+static inline T min(T a, T b) {
+  return a < b ? a : b;
+}
+template <class T>
+static inline T max(T a, T b) {
+  return a > b ? a : b;
 }
 
 static inline void __pipeline_memcpy_async(void* dst, const void* src,

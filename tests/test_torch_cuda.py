@@ -390,6 +390,66 @@ def test_ht_decode_kernel_bad_scup_and_wrap(gen):
             assert torch.equal(o, r)
 
 
+def _decode_stages(items, outs=None):
+    """The three decode launches on decode_args' card tensors, one launch
+    each, held to the twins stage by stage (torch_ht_cases.check_decode)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if outs is None:
+        outs = [torch.full((h, w), 12345, dtype=torch.int32, device=dev)
+                for _, h, w in items]
+    args = ht_decode.decode_args(items, dev, outs)
+    reset_launches()
+    ht_decode.launch_decode(args, dev)
+    assert LAUNCHES["ht_destuff"] == 1 and LAUNCHES["ht_decode"] == 1
+    assert LAUNCHES["ht_magsgn"] == 1
+    cases.check_decode(ht_decode, args, outs, items)
+
+
+@pytest.mark.parametrize("n", [1, 8, 13, 67])
+def test_ht_decode_kernels_partial_ctas(gen, n):
+    """Batches that fill no destuffing CTA, one, and more than one with
+    the last part-empty (a CTA destuffs several blocks; MagSgn spreads a
+    block's chunks over a CTA's warps, some idle on small blocks), with a
+    long dense block that runs the destuffing ring around many times."""
+    rng = np.random.default_rng(20 + n)
+    items = _ht_segments(rng, [(64, 64), (32, 12), (10, 32), (2, 4)], n=n)
+    items = [items[i] for i in rng.permutation(len(items))[:n - 1]]
+    items += [(ht_encode.encode_cblks_ht_plain(
+        list(torch.from_numpy(cases.dense_ff())))[0][0][0], 32, 32)]
+    _decode_stages(items)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ht_magsgn_store_variants(gen, aligned):
+    """Destinations whose rows are 8-byte aligned (a quad row one 8-byte
+    store) and ones that are not (4-byte stores), in one band; the rest of
+    the band untouched."""
+    rng = np.random.default_rng(26)
+    items = _ht_segments(rng, [(32, 32), (32, 12), (10, 32)], n=1)
+    band = torch.full((64, 98 if aligned else 97), 7, dtype=torch.int32,
+                      device="cuda")
+    x = 0 if aligned else 1
+    regions = [(slice(0, 32), slice(x, x + 32)),
+               (slice(32, 64), slice(x, x + 12)),
+               (slice(0, 10), slice(x + 40, x + 72))]
+    _decode_stages(items, [band[r] for r in regions])
+    mask = torch.ones_like(band, dtype=torch.bool)
+    for r in regions:
+        mask[r] = False
+    assert bool((band[mask] == 7).all())
+
+
+def test_ht_destuff_odd_offsets(gen):
+    """Segments at odd byte offsets of the joined buffer (a one-byte and a
+    three-byte segment first), so MagSgn starts mid-chunk; bad Scup and the
+    wrapping cursor beside them."""
+    rng = np.random.default_rng(27)
+    items = [(b"\x05", 2, 2), (b"\x00\x22\x00", 4, 4)]
+    items += _ht_segments(rng, cases.DEC_SHAPES, n=2)
+    items += cases.bad_scup(rng) + [(cases.WRAP_SEG, 8, 8)]
+    _decode_stages(items)
+
+
 def test_ht_encode_kernel_raises_on_suffix_overflow(gen, monkeypatch):
     """A Scup above SCUP_MAX is reported by the kernel and raises (no
     legal block reaches 4079, so the limit is lowered here)."""
