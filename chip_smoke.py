@@ -46,9 +46,10 @@ decode bit-exact, raise every launch counter of its path (case (b): one
 launch of each level kernel a DWT level, one of each RCT kernel, one of
 each HT kernel; cases (a) and (c): one MQ encode and one MQ decode launch
 a tile) and send no tile down the host path; each case says how many
-codeblocks each direction coded on the card and on the native coder, and
-cases (a), (b), (c) and (d) where their Tier-1 (and (d) its transform)
-time goes.  Case (c)'s and (d)'s plain routes (the MQ twins on the CPU,
+codeblocks each direction coded on the card and on the native coder.
+Where a call's time goes is not split here: the port's `grk/` phase spans
+(grok_tpu_torch/trace.py) split it under any torch.profiler, as the
+benchmark's traced runs do.  Case (c)'s and (d)'s plain routes (the MQ twins on the CPU,
 slow at this size) are compared on a first 512x512 part coded as an image
 of its own; a multi-layer variant of (c) (layer_rates [40, 10, 1], the
 distortion-tracking path) is held to the host route.  Case (d) is lossy:
@@ -98,7 +99,6 @@ nonzero, printing neither, when no CUDA device is present.
 
 from __future__ import annotations
 
-import gc
 import json
 import os
 import statistics
@@ -967,185 +967,6 @@ def mq_times_only(tree: str) -> int:
     return 0
 
 
-def mq_breakdown(name, arr, kw, data):
-    """A case's MQ Tier-1 split over one encode and one decode: card MQ
-    (the kernels, the host work around them: descriptors and the upload,
-    the copies back and the slicing) against the host route's whole-tile
-    native Tier-1 (backend="native")."""
-    import grok_tpu_torch
-    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
-    from grok_tpu_torch.ops import mq_decode, mq_encode
-    from grok_tpu_torch.t1 import backend as t1
-    from grok_tpu_torch.tile import processor
-
-    tc, td = processor.TileCompressor, processor.TileDecompressor
-    img = GrkImage.from_array(arr)
-    with Timed(card=(t1, "_encode_mq_device"),
-               args=(mq_encode, "encode_args"),
-               kernel=(mq_encode, "launch_encode"),
-               finish=(mq_encode, "finish_encode")) as enc:
-        grok_tpu_torch.compress(img, CompressParams(**kw))
-    with Timed(card=(t1, "_decode_mq_device"),
-               args=(mq_decode, "decode_args"),
-               kernel=(mq_decode, "launch_decode")) as dec:
-        grok_tpu_torch.decompress(data)
-    with Timed(host=(tc, "_run_t1_tile_native_enc")) as henc:
-        grok_tpu_torch.compress(img, CompressParams(backend="native", **kw))
-    with Timed(host=(td, "_run_t1_tile_native")) as hdec:
-        grok_tpu_torch.decompress(data, DecompressParams(backend="native"))
-    e, d = enc.ms, dec.ms
-    log(f"stages ({name}) MQ Tier-1 ms: encode card MQ {e['card']:.1f} "
-        f"(descriptors and upload {e['args']:.1f}, kernel {e['kernel']:.1f}, "
-        f"copies back and slicing {e['finish']:.1f}, the rest of the router "
-        f"{e['card'] - e['args'] - e['kernel'] - e['finish']:.1f}), host "
-        f"route whole-tile native {henc.ms['host']:.1f}; decode card MQ "
-        f"{d['card']:.1f} (joining, descriptors and upload {d['args']:.1f}, "
-        f"kernel {d['kernel']:.1f}, the rest of the router "
-        f"{d['card'] - d['args'] - d['kernel']:.1f}), host route "
-        f"whole-tile native {hdec.ms['host']:.1f}")
-
-
-def lossy_breakdown(arr, kw, data):
-    """Case (d)'s split over one encode and one decode on the card and one
-    on the host route: the transforms (card: the pipeline with its copies,
-    processor._analyse / _synthesise; host route: the tile processor's
-    numpy and native transforms) and MQ Tier-1 (card: the routers with
-    their kernels and host work; host route: whole-tile native Tier-1),
-    beside each direction's whole call."""
-    import grok_tpu_torch
-    from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
-    from grok_tpu_torch.t1 import backend as t1
-    from grok_tpu_torch.tile import processor
-
-    tc, td = processor.TileCompressor, processor.TileDecompressor
-    img = GrkImage.from_array(arr)
-    card, host = {}, {}
-
-    def run(into, fn, **targets):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with Timed(**targets) as timed:
-            fn()
-        torch.cuda.synchronize()
-        into.update(timed.ms)
-        into[fn.__name__] = 1e3 * (time.perf_counter() - t)
-
-    def encode():
-        grok_tpu_torch.compress(img, CompressParams(**kw))
-
-    def decode():
-        grok_tpu_torch.decompress(data)
-
-    def encode_host():
-        grok_tpu_torch.compress(img, CompressParams(backend="native", **kw))
-
-    def decode_host():
-        grok_tpu_torch.decompress(data, DecompressParams(backend="native"))
-
-    run(card, encode, analysis=(processor, "_analyse"),
-        mq_enc=(t1, "_encode_mq_device"))
-    run(card, decode, synthesis=(processor, "_synthesise"),
-        mq_dec=(t1, "_decode_mq_device"))
-    run(host, encode_host, analysis=(tc, "run_transforms"),
-        mq_enc=(tc, "_run_t1_tile_native_enc"))
-    run(host, decode_host, synthesis=(td, "reconstruct"),
-        mq_dec=(td, "_run_t1_tile_native"))
-    log(f"stages (d) ms: encode: analysis card {card['analysis']:.1f}, host "
-        f"route {host['analysis']:.1f}; MQ Tier-1 card {card['mq_enc']:.1f},"
-        f" host route whole-tile native {host['mq_enc']:.1f}; whole encode "
-        f"card {card['encode']:.1f}, host route {host['encode_host']:.1f}. "
-        f"decode: synthesis card {card['synthesis']:.1f}, host route "
-        f"{host['synthesis']:.1f}; MQ Tier-1 card {card['mq_dec']:.1f}, "
-        f"host route whole-tile native {host['mq_dec']:.1f}; whole decode "
-        f"card {card['decode']:.1f}, host route {host['decode_host']:.1f}")
-
-
-class Timed:
-    """Accumulate the host-clock ms of calls to module attributes, each
-    call ending in a synchronize, while the context is open."""
-
-    def __init__(self, **targets):
-        self.targets = targets  # label -> (owner, attribute name)
-        self.ms = dict.fromkeys(targets, 0.0)
-        self.saved = {}
-
-    def __enter__(self):
-        for label, (owner, attr) in self.targets.items():
-            fn = getattr(owner, attr)
-            self.saved[label] = fn
-
-            def timed(*a, _fn=fn, _label=label, **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                try:
-                    return _fn(*a, **k)
-                finally:
-                    torch.cuda.synchronize()
-                    self.ms[_label] += 1e3 * (time.perf_counter() - t)
-            setattr(owner, attr, timed)
-        return self
-
-    def __exit__(self, *exc):
-        for label, (owner, attr) in self.targets.items():
-            setattr(owner, attr, self.saved[label])
-
-
-def tier1_breakdown(arr, kw, data):
-    """Case (b)'s Tier-1 split: card HT (the kernels, and the host work
-    left around them: descriptors and the upload on both sides, the copy
-    back and the slicing into segments on encode) against host HT on the
-    native coder, over one encode and one decode."""
-    import grok_tpu_torch
-    from grok_tpu_torch import CompressParams, GrkImage
-    from grok_tpu_torch.ops import ht_decode, ht_encode
-    from grok_tpu_torch.t1 import backend as t1
-
-    native = t1._HT_NATIVE
-    holder = type("NativeHT", (), {"encode": staticmethod(native[0]),
-                                   "decode": staticmethod(native[1])})
-    t1._HT_NATIVE = (lambda *a, **k: holder.encode(*a, **k),
-                     lambda *a, **k: holder.decode(*a, **k))
-    try:
-        with Timed(card=(t1, "_encode_ht_device"),
-                   args=(ht_encode, "encode_args"),
-                   kernel=(ht_encode, "launch_encode"),
-                   finish=(ht_encode, "finish_encode"),
-                   host=(holder, "encode")) as enc:
-            grok_tpu_torch.compress(GrkImage.from_array(arr),
-                                    CompressParams(**kw))
-        with Timed(card=(t1, "_decode_ht_device"),
-                   into=(t1, "_decode_into"),
-                   dests=(ht_decode, "_dests"),
-                   args=(ht_decode, "decode_args"),
-                   kernel=(ht_decode, "launch_decode"),
-                   host=(holder, "decode")) as dec:
-            grok_tpu_torch.decompress(data)
-        # the same decode with Python's garbage collector off (measurement
-        # only): what the collector costs over the router's objects
-        gc.collect()
-        gc.disable()
-        try:
-            with Timed(card=(t1, "_decode_ht_device")) as nogc:
-                grok_tpu_torch.decompress(data)
-        finally:
-            gc.enable()
-    finally:
-        t1._HT_NATIVE = native
-    e, d = enc.ms, dec.ms
-    log(f"stages (b) Tier-1 ms: encode card HT {e['card']:.1f} (descriptors "
-        f"and upload {e['args']:.1f}, kernel {e['kernel']:.1f}, copies back "
-        f"and slicing into segments {e['finish']:.1f}, the rest of the "
-        f"router {e['card'] - e['args'] - e['kernel'] - e['finish']:.1f}), "
-        f"host HT {e['host']:.1f}; decode card HT {d['card']:.1f} (the job "
-        f"list {d['card'] - d['into']:.1f}, validating the destinations "
-        f"{d['dests']:.1f}, joining, descriptors and upload "
-        f"{d['args']:.1f}, kernels {d['kernel']:.1f}, output buffer, copy "
-        f"back and bookkeeping "
-        f"{d['into'] - d['dests'] - d['args'] - d['kernel']:.1f}), host HT "
-        f"{d['host']:.1f}; the decode router with the garbage collector off "
-        f"{nogc.ms['card']:.1f}")
-
-
 def time_ms(fn) -> tuple[float, float]:
     """(per-launch ms: median of single launches each synchronized,
     amortised ms: QUEUED launches then one synchronize), CUDA events."""
@@ -1610,40 +1431,6 @@ def turns(ref, port) -> tuple[float, float]:
         torch.cuda.synchronize()
         times[fn].append(time.perf_counter() - t)
     return min(times[ref]), min(times[port])
-
-
-def stage_breakdown(arr):
-    """Where case (b)'s device transform time goes: the copies to and from
-    the card and the pipeline on it (host clock, each stage ending in a
-    synchronize)."""
-    from grok_tpu_torch.ops import pipeline
-
-    kw = dict(numres=6, reversible=True, mct=1, prec=8, sgnd=False)
-    pipeline.analysis(torch.zeros((3, 1, 64, 64), dtype=torch.int32,
-                                  device="cuda"), **kw)  # warm the path
-    stack = np.ascontiguousarray(
-        np.moveaxis(arr.astype(np.int32), -1, 0)[:, None])
-    ms = {}
-
-    def timed(label, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        ms[label] = 1e3 * (time.perf_counter() - t)
-        return out
-
-    x = timed("H2D", lambda: torch.from_numpy(stack).to("cuda"))
-    bands = timed("analysis", lambda: pipeline.analysis(x, **kw))
-    host = timed("D2H bands",
-                 lambda: {k: v.cpu().numpy() for k, v in bands.items()})
-    doubled = {k: 2 * v for k, v in host.items()}
-    dev = timed("H2D bands", lambda: {k: torch.from_numpy(v).to("cuda")
-                                      for k, v in doubled.items()})
-    back = timed("synthesis", lambda: pipeline.synthesis(dev, shape=UHD,
-                                                         **kw))
-    timed("D2H", back.cpu)
-    log("stages (b) ms: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
 
 
 # -------------------------------------------------------------------- main
@@ -2355,9 +2142,9 @@ def main() -> int:
     # case (a): one tile, one launch of each level kernel a level and one
     # MQ launch each way; 70 codeblocks coded on the card, 63 decoded there
     # (grok_tpu's router decodes shape groups of 8 or more on its device)
-    kw_a = dict(numresolution=6)
-    _, data_a = codec_case(
-        "a config-1 512x512 gray MQ", gray, kw_a, lift + mq, card_note,
+    codec_case(
+        "a config-1 512x512 gray MQ", gray, dict(numresolution=6), lift + mq,
+        card_note,
         exact=dict(dict.fromkeys(every, 0), fwd53_level=5, inv53_level=5,
                    mq_encode=1, mq_decode=1),
         mq=dict(mq_encode_device=70, mq_encode_host=0,
@@ -2415,13 +2202,6 @@ def main() -> int:
     phase("cli")
     giga_part_checks(card_note)
     phase("gigapixel part checks")
-    stage_breakdown(uhd)
-    tier1_breakdown(uhd, kw_b, data_b)
-    mq_breakdown("a", gray, kw_a, data_a)
-    mq_breakdown("c", rgb_c, kw_c, data_c)
-    lossy_breakdown(rgb_d, kw_d, data_d)
-    mq_breakdown("d", rgb_d, kw_d, data_d)
-    phase("stage lines")
     no_reference_loaded()
 
     kernels = []

@@ -56,7 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-H", "--num-threads", type=int, default=0)
     p.add_argument("-e", "--repetitions", type=int, default=1)
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace to DIR")
+                   help="write a torch.profiler Chrome trace to DIR: the "
+                   "card's kernels and copies beside the codec's grk/ phase "
+                   "spans (grk/encode, grk/decode and their phases, "
+                   "grk/gc/gen<N> for collector pauses)")
     p.add_argument("-j", "--duration", type=float, default=None,
                    help="repeat for at least this many seconds (benchmark)")
     p.add_argument("-v", "--verbose", action="store_true")

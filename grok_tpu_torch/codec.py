@@ -42,6 +42,7 @@ from .device import resolve_device
 from .image import ColorSpace, GrkImage
 from .parallel.mesh import resolve_mesh
 from .params import CompressParams, DecompressParams
+from .trace import root, span
 
 Device = str | torch.device
 
@@ -54,12 +55,18 @@ def compress(image: GrkImage, params: CompressParams | None = None,
              device: Device = "cuda") -> bytes:
     """Encode a GrkImage to a raw codestream (.j2k) or JP2 file."""
     params = params or CompressParams()
-    cs = compress_codestream(image, params,
-                             _device_for(params.backend, device),
-                             mesh=resolve_mesh(params.mesh, device))
-    if params.cod_format == "jp2":
+    with root("grk/encode"):
+        cs = compress_codestream(image, params,
+                                 _device_for(params.backend, device),
+                                 mesh=resolve_mesh(params.mesh, device))
+        return _wrap(cs, image, params)
+
+
+def _wrap(cs: bytes, image: GrkImage, params: CompressParams) -> bytes:
+    if params.cod_format != "jp2":
+        return cs
+    with span("grk/encode/assemble"):
         return jp2_mod.wrap_jp2(cs, image, ht=params.ht)
-    return cs
 
 
 def compress_strips(image: GrkImage, reader,
@@ -73,13 +80,12 @@ def compress_strips(image: GrkImage, reader,
     memory is O(tile row), not O(image), on the host and on the card —
     the gigapixel encode path."""
     params = params or CompressParams()
-    cs = compress_codestream(image, params,
-                             _device_for(params.backend, device),
-                             strip_reader=reader,
-                             mesh=resolve_mesh(params.mesh, device))
-    if params.cod_format == "jp2":
-        return jp2_mod.wrap_jp2(cs, image, ht=params.ht)
-    return cs
+    with root("grk/encode"):
+        cs = compress_codestream(image, params,
+                                 _device_for(params.backend, device),
+                                 strip_reader=reader,
+                                 mesh=resolve_mesh(params.mesh, device))
+        return _wrap(cs, image, params)
 
 
 def compress_strips_file(image: GrkImage, reader, path: str,
@@ -92,7 +98,7 @@ def compress_strips_file(image: GrkImage, reader, path: str,
     are rejected; use ppt/plt."""
     params = params or CompressParams()
     dev = _device_for(params.backend, device)
-    with open(path, "wb") as f:
+    with root("grk/encode"), open(path, "wb") as f:
         if params.cod_format == "jp2":
             # jp2c LBox=0: codestream runs to end of file (I.5.1)
             f.write(jp2_mod.jp2_prefix(image, ht=params.ht))
@@ -132,23 +138,27 @@ def decompress(data: bytes, params: DecompressParams | None = None,
     util.caches.TileCache to serve repeated multi-window/tile requests
     from cache."""
     params = params or DecompressParams()
-    meta = None
-    colorspace = None
-    if jp2_mod.is_jp2(data):
-        cs, meta, colorspace = jp2_mod.unwrap_jp2(data)
-    else:
-        cs = data
-    dec = CodestreamDecoder(cs, strict=params.strict,
-                            device=_device_for(params.backend, device))
-    dec.parse()
-    img = dec.decode(params, cache=cache,
-                     mesh=resolve_mesh(params.mesh, device))
-    if meta is not None:
-        img.meta = meta
-    if colorspace is not None:
-        img.color_space = colorspace
-    _postprocess(img, params)
-    return img
+    with root("grk/decode"):
+        with span("grk/decode/parse"):
+            meta = None
+            colorspace = None
+            if jp2_mod.is_jp2(data):
+                cs, meta, colorspace = jp2_mod.unwrap_jp2(data)
+            else:
+                cs = data
+            dec = CodestreamDecoder(cs, strict=params.strict,
+                                    device=_device_for(params.backend,
+                                                       device))
+            dec.parse()
+        img = dec.decode(params, cache=cache,
+                         mesh=resolve_mesh(params.mesh, device))
+        if meta is not None:
+            img.meta = meta
+        if colorspace is not None:
+            img.color_space = colorspace
+        with span("grk/decode/post"):
+            _postprocess(img, params)
+        return img
 
 
 def decompress_strips(data: bytes, params: DecompressParams | None = None,

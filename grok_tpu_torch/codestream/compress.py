@@ -36,6 +36,7 @@ from ..params import (
 from ..tile.geometry import Rect, tile_rect
 from ..tile.processor import (TileCompressor, acquire_tile, host_backend,
                               release_tile, run_transforms_device_batched)
+from ..trace import span
 from ..transform import mct as mct_mod
 from ..transform import quant as quant_mod
 from . import markers as mk
@@ -243,9 +244,262 @@ def compress_codestream(image: GrkImage, p: CompressParams,
         elif not (c.w and c.h):
             c.w = -(-image.x1 // c.dx) - c.x0
             c.h = -(-image.y1 // c.dy) - c.y0
-    cp = setup_coding_params(image, p)
-    tcp0 = cp.tcps[0]
+    with span("grk/encode/header"):
+        cp = setup_coding_params(image, p)
+        tcp0 = cp.tcps[0]
+        out = _main_header(image, p, cp)
 
+    # TLM/PPM are assembled after all tile-parts are encoded and inserted
+    # here; tile-part bytes accumulate in `body_out`.
+    body_out = bytearray()
+    ppm_chunks: list[bytes] = []
+    plm_entries: list[list[int]] = []
+
+    img_rect = Rect(image.x0, image.y0, image.x1, image.y1)
+    raw_bytes = sum(c.h * c.w * c.prec for c in image.comps) / 8.0
+    p._raw_bytes_total = raw_bytes  # for -W per-tile share scaling
+    # -W is a TOTAL codestream cap: subtract the main-header bytes written
+    # so far plus EOC and the TLM index
+    p._cap_overhead = (len(out) + 2
+                       + (len(mk.write_tlm(
+                              0, _predict_tlm_entries(cp, p, image))) + 6
+                          if p.tlm else 0))
+    if p.ppm and p.max_cs_size:
+        p._cap_overhead += (4 * cp.numtiles
+                            + 5 * (p.max_cs_size // 65528 + 1))
+
+    cp._has_rate_targets = bool(p.layer_rates or p.layer_psnr
+                                or p.max_cs_size)
+    cp._has_quality_targets = bool(p.layer_psnr)
+    cp._sim_pkt_overhead = (6 if p.sop else 0) + (2 if p.eph else 0)
+    ntp = 1
+    if p.new_tile_part_progression == "R":
+        ntp = p.numresolution
+    elif p.new_tile_part_progression == "L":
+        ntp = p.numlayers
+    elif p.new_tile_part_progression == "C":
+        ntp = image.numcomps
+    cp._sim_tile_parts = ntp
+    mct_norms_arr = None
+    if tcp0.mct == 1:
+        mct_norms_arr = mct_mod.mct_norms(p.irreversible)
+    elif tcp0.mct == 2:
+        mct_norms_arr = mct_mod.custom_mct_norms(tcp0.mct_matrix)
+
+    backend = host_backend(p.backend)
+
+    def _make_compressor(q, pt):
+        tidx = q * cp.t_grid_w + pt
+        tcp = cp.tcps[tidx]
+        trect = tile_rect(pt, q, cp.t_width, cp.t_height,
+                          cp.tx0, cp.ty0, img_rect)
+        tile = acquire_tile(tidx, trect, image, tcp)
+        return (tidx, tcp, trect, TileCompressor(
+            tile, tcp, image, cp, device, backend=backend,
+            mct_norms_arr=mct_norms_arr, num_threads=p.num_threads,
+            mesh=mesh))
+
+    def _make_row(rows, cols):
+        with span("grk/encode/tiles"):
+            return [_make_compressor(q, pt) for q in rows for pt in cols]
+
+    def _batch_full(row):
+        # with a device or a mesh, the uniform full-size tiles go through
+        # ONE batched analysis (sharded over the mesh)
+        if device is not None or mesh is not None:
+            with span("grk/encode/transform"):
+                run_transforms_device_batched(
+                    [t for (_, _, tr, t) in row
+                     if tr.w == cp.t_width and tr.h == cp.t_height],
+                    mesh=mesh)
+
+    # phase 1: build every tile's compressor.  Strip-reader encodes defer
+    # construction to the row loop below so memory stays O(tile row).
+    compressors = None
+    if strip_reader is None:
+        compressors = _make_row(range(cp.t_grid_h), range(cp.t_grid_w))
+        _batch_full(compressors)
+
+    if (p.plt or p.plm) and p.max_cs_size:
+        # reserve the packet-length indexes' footprint in the byte budget
+        # (a bound that no packet sizes can overshoot)
+        if compressors is not None:
+            npkts = sum(res.pw * res.ph
+                        for (_ti, _tcpx, _tr, tcx) in compressors
+                        for comp in tcx.tile.comps
+                        for res in comp.resolutions) * tcp0.numlayers
+        else:
+            npkts = _count_packets_geometry(cp, image, img_rect) \
+                * tcp0.numlayers
+        big = sum(min(npkts, p.max_cs_size >> s) for s in (14, 21, 28))
+        p._cap_overhead += 2 * npkts + big + 8 * (npkts // 8000 + 2)
+
+    def _tile_iter():
+        if compressors is not None:
+            yield from compressors
+            return
+        # strip mode: one reader call per tile row, tiles built lazily,
+        # strip planes released as soon as the row is done; with a device
+        # the row's uniform tiles go through one batched analysis
+        for q in range(cp.t_grid_h):
+            ty0 = max(image.y0, cp.ty0 + q * cp.t_height)
+            ty1 = min(image.y1, cp.ty0 + (q + 1) * cp.t_height)
+            _install_strips(image, ty0, ty1, strip_reader)
+            try:
+                row = _make_row((q,), range(cp.t_grid_w))
+                _batch_full(row)
+                while row:
+                    yield row.pop(0)
+            finally:
+                for c in image.comps:
+                    c.data = None
+                    c._data_y0 = 0
+
+    tlm_pos = tlm_reserve = 0
+    if sink is not None:
+        sink.write(out)
+        if p.tlm:
+            # reserve an upper-bound TLM span now; the real index (known
+            # only after encoding) is seek-back patched, with a COM
+            # filler absorbing the remainder
+            tlm_reserve = len(mk.write_tlm(
+                0, _predict_tlm_entries(cp, p, image))) + 6
+            tlm_pos = sink.tell()
+            sink.write(b"\x00" * tlm_reserve)
+
+    tlm_entries = []
+    for (tidx, tcp, trect, tc) in _tile_iter():
+        with span("grk/encode/transform"):
+            tc.run_transforms()
+        # layer budgets
+        if p.layer_psnr:
+            tc.run_t1()
+            with span("grk/encode/ratecontrol"):
+                tc.assign_layers_quality(p.layer_psnr)
+        else:
+            tile_frac = (trect.area / max(1, (img_rect.area))) if \
+                cp.numtiles > 1 else 1.0
+            targets = _layer_targets(p, tcp.numlayers,
+                                     raw_bytes * tile_frac)
+            # all-finite byte budgets let Tier-1 early-stop each codeblock;
+            # revalidate re-encodes the rare block whose truncated hull
+            # still bites at the final threshold
+            quota = (targets[-1] if p.rate_quota and targets
+                     and all(t is not None for t in targets) else None)
+            tc.run_t1(rate_quota=quota)
+            with span("grk/encode/ratecontrol"):
+                tc.assign_layers(targets)
+                if quota:
+                    for _ in range(3):
+                        if not tc.revalidate_rate_truncation():
+                            break
+                        tc.assign_layers(targets)
+        comp_info = [(c.dx, c.dy, tcp.tccps[i].numresolutions)
+                     for i, c in enumerate(image.comps)]
+        with span("grk/encode/t2"):
+            body, pkt_lens, coords, ppt_hdrs = tc.write_packets(
+                comp_info, sop=p.sop, eph=p.eph, ppt=p.ppt or p.ppm)
+        with span("grk/encode/assemble"):
+            if p.ppm:
+                ppm_chunks.append(ppt_hdrs)
+            # tile-part segmentation (-u R|L|C): split at changes of the chosen
+            # index in progression order
+            groups = _split_tile_parts(
+                coords, None if p.ppt else p.new_tile_part_progression)
+            tnsot = len(groups)
+            off = 0
+            zplt = 0  # PLT segment index: sequential per tile across tile-parts
+            for tpno, (p0, p1) in enumerate(groups):
+                glen = sum(pkt_lens[p0:p1])
+                chunk = body[off:off + glen]
+                off += glen
+                plt_seg = b""
+                if tpno == 0 and tcp.progression_changes \
+                        and getattr(p, "tile_progression_changes", None):
+                    # per-tile -P mode: every tile signals its own POC in its
+                    # first tile-part header
+                    plt_seg += mk.write_poc(tcp.progression_changes,
+                                            image.numcomps)
+                if p.plt:
+                    seg, zplt = mk.write_plt(
+                        zplt & 0xFF, pkt_lens[p0:p1], return_next=True)
+                    plt_seg += seg
+                if p.plm:
+                    plm_entries.append(list(pkt_lens[p0:p1]))
+                if p.ppt and not p.ppm and tpno == 0:
+                    # packed packet headers: PPT segments of <= 65528 bytes
+                    z = 0
+                    off2 = 0
+                    while off2 < len(ppt_hdrs) or z == 0:
+                        seg = ppt_hdrs[off2:off2 + 65528]
+                        plt_seg += mk.write_ppt(z & 0xFF, seg)
+                        off2 += 65528
+                        z += 1
+                psot = 12 + len(plt_seg) + 2 + len(chunk)
+                tp = bytearray()
+                tp += mk.write_sot(tidx, psot, tpno, tnsot)
+                tp += plt_seg
+                tp += mk.u16(mk.SOD)
+                tp += chunk
+                if sink is not None:
+                    sink.write(tp)
+                else:
+                    body_out += tp
+                tlm_entries.append((tidx, len(tp)))
+            if compressors is None:
+                # strip mode: the tile back to the pool and its device tensors
+                # dropped, so a row's bands leave the card with the row
+                tc.release()
+                del tc
+
+    with span("grk/encode/assemble"):
+        if sink is not None:
+            sink.write(mk.u16(mk.EOC))
+            if p.tlm:
+                actual = mk.write_tlm(0, tlm_entries)
+                end = sink.tell()
+                sink.seek(tlm_pos)
+                gap = tlm_reserve - len(actual)
+                if gap == 0 or gap >= 6:
+                    sink.write(actual)
+                    sink.write(_com_filler(gap))
+                else:  # can't happen with the 255-per-tile bound; stay safe
+                    log.warning("TLM (%d B) exceeds its %d B reservation; "
+                                "stream written without a TLM index",
+                                len(actual), tlm_reserve)
+                    sink.write(_com_filler(tlm_reserve))
+                sink.seek(end)
+            for (_tidx, _tcp, _trect, tc) in compressors or ():
+                tc.release()
+            return b""
+
+        if p.tlm:
+            out += mk.write_tlm(0, tlm_entries)
+        if p.plm and plm_entries:
+            out += mk.write_plm(0, plm_entries)
+        if p.ppm:
+            # one Nppm-framed chunk per tile-part, split into <= 65528-byte
+            # PPM marker segments
+            stream = bytearray()
+            for chunk in ppm_chunks:
+                stream += mk.u32(len(chunk)) + chunk
+            z = 0
+            off = 0
+            while off < len(stream) or z == 0:
+                out += mk.write_ppm(z & 0xFF, bytes(stream[off:off + 65528]))
+                off += 65528
+                z += 1
+        out += body_out
+        out += mk.u16(mk.EOC)
+        for (_tidx, _tcp, _trect, tc) in compressors or ():
+            tc.release()  # geometry tree back to the pool, scrubbed
+        return bytes(out)
+
+
+def _main_header(image: GrkImage, p: CompressParams,
+                 cp: CodingParams) -> bytearray:
+    """SOC and the main header's marker segments, up to the first SOT."""
+    tcp0 = cp.tcps[0]
     out = bytearray()
     out += mk.u16(mk.SOC)
     si = mk.SizInfo(
@@ -300,243 +554,7 @@ def compress_codestream(image: GrkImage, p: CompressParams,
             raise ParamError("comp_registration needs one (Xcrg, Ycrg) "
                              "pair per component")
         out += mk.write_crg(p.comp_registration)
-
-    # TLM/PPM are assembled after all tile-parts are encoded and inserted
-    # here; tile-part bytes accumulate in `body_out`.
-    body_out = bytearray()
-    ppm_chunks: list[bytes] = []
-    plm_entries: list[list[int]] = []
-
-    img_rect = Rect(image.x0, image.y0, image.x1, image.y1)
-    raw_bytes = sum(c.h * c.w * c.prec for c in image.comps) / 8.0
-    p._raw_bytes_total = raw_bytes  # for -W per-tile share scaling
-    # -W is a TOTAL codestream cap: subtract the main-header bytes written
-    # so far plus EOC and the TLM index
-    p._cap_overhead = (len(out) + 2
-                       + (len(mk.write_tlm(
-                              0, _predict_tlm_entries(cp, p, image))) + 6
-                          if p.tlm else 0))
-    if p.ppm and p.max_cs_size:
-        p._cap_overhead += (4 * cp.numtiles
-                            + 5 * (p.max_cs_size // 65528 + 1))
-
-    cp._has_rate_targets = bool(p.layer_rates or p.layer_psnr
-                                or p.max_cs_size)
-    cp._has_quality_targets = bool(p.layer_psnr)
-    cp._sim_pkt_overhead = (6 if p.sop else 0) + (2 if p.eph else 0)
-    ntp = 1
-    if p.new_tile_part_progression == "R":
-        ntp = p.numresolution
-    elif p.new_tile_part_progression == "L":
-        ntp = p.numlayers
-    elif p.new_tile_part_progression == "C":
-        ntp = image.numcomps
-    cp._sim_tile_parts = ntp
-    mct_norms_arr = None
-    if tcp0.mct == 1:
-        mct_norms_arr = mct_mod.mct_norms(p.irreversible)
-    elif tcp0.mct == 2:
-        mct_norms_arr = mct_mod.custom_mct_norms(tcp0.mct_matrix)
-
-    backend = host_backend(p.backend)
-
-    def _make_compressor(q, pt):
-        tidx = q * cp.t_grid_w + pt
-        tcp = cp.tcps[tidx]
-        trect = tile_rect(pt, q, cp.t_width, cp.t_height,
-                          cp.tx0, cp.ty0, img_rect)
-        tile = acquire_tile(tidx, trect, image, tcp)
-        return (tidx, tcp, trect, TileCompressor(
-            tile, tcp, image, cp, device, backend=backend,
-            mct_norms_arr=mct_norms_arr, num_threads=p.num_threads,
-            mesh=mesh))
-
-    def _batch_full(row):
-        # with a device or a mesh, the uniform full-size tiles go through
-        # ONE batched analysis (sharded over the mesh)
-        if device is not None or mesh is not None:
-            run_transforms_device_batched(
-                [t for (_, _, tr, t) in row
-                 if tr.w == cp.t_width and tr.h == cp.t_height], mesh=mesh)
-
-    # phase 1: build every tile's compressor.  Strip-reader encodes defer
-    # construction to the row loop below so memory stays O(tile row).
-    compressors = None
-    if strip_reader is None:
-        compressors = [_make_compressor(q, pt)
-                       for q in range(cp.t_grid_h)
-                       for pt in range(cp.t_grid_w)]
-        _batch_full(compressors)
-
-    if (p.plt or p.plm) and p.max_cs_size:
-        # reserve the packet-length indexes' footprint in the byte budget
-        # (a bound that no packet sizes can overshoot)
-        if compressors is not None:
-            npkts = sum(res.pw * res.ph
-                        for (_ti, _tcpx, _tr, tcx) in compressors
-                        for comp in tcx.tile.comps
-                        for res in comp.resolutions) * tcp0.numlayers
-        else:
-            npkts = _count_packets_geometry(cp, image, img_rect) \
-                * tcp0.numlayers
-        big = sum(min(npkts, p.max_cs_size >> s) for s in (14, 21, 28))
-        p._cap_overhead += 2 * npkts + big + 8 * (npkts // 8000 + 2)
-
-    def _tile_iter():
-        if compressors is not None:
-            yield from compressors
-            return
-        # strip mode: one reader call per tile row, tiles built lazily,
-        # strip planes released as soon as the row is done; with a device
-        # the row's uniform tiles go through one batched analysis
-        for q in range(cp.t_grid_h):
-            ty0 = max(image.y0, cp.ty0 + q * cp.t_height)
-            ty1 = min(image.y1, cp.ty0 + (q + 1) * cp.t_height)
-            _install_strips(image, ty0, ty1, strip_reader)
-            try:
-                row = [_make_compressor(q, pt)
-                       for pt in range(cp.t_grid_w)]
-                _batch_full(row)
-                while row:
-                    yield row.pop(0)
-            finally:
-                for c in image.comps:
-                    c.data = None
-                    c._data_y0 = 0
-
-    tlm_pos = tlm_reserve = 0
-    if sink is not None:
-        sink.write(out)
-        if p.tlm:
-            # reserve an upper-bound TLM span now; the real index (known
-            # only after encoding) is seek-back patched, with a COM
-            # filler absorbing the remainder
-            tlm_reserve = len(mk.write_tlm(
-                0, _predict_tlm_entries(cp, p, image))) + 6
-            tlm_pos = sink.tell()
-            sink.write(b"\x00" * tlm_reserve)
-
-    tlm_entries = []
-    for (tidx, tcp, trect, tc) in _tile_iter():
-        tc.run_transforms()
-        # layer budgets
-        if p.layer_psnr:
-            tc.run_t1()
-            tc.assign_layers_quality(p.layer_psnr)
-        else:
-            tile_frac = (trect.area / max(1, (img_rect.area))) if \
-                cp.numtiles > 1 else 1.0
-            targets = _layer_targets(p, tcp.numlayers,
-                                     raw_bytes * tile_frac)
-            # all-finite byte budgets let Tier-1 early-stop each codeblock;
-            # revalidate re-encodes the rare block whose truncated hull
-            # still bites at the final threshold
-            quota = (targets[-1] if p.rate_quota and targets
-                     and all(t is not None for t in targets) else None)
-            tc.run_t1(rate_quota=quota)
-            tc.assign_layers(targets)
-            if quota:
-                for _ in range(3):
-                    if not tc.revalidate_rate_truncation():
-                        break
-                    tc.assign_layers(targets)
-        comp_info = [(c.dx, c.dy, tcp.tccps[i].numresolutions)
-                     for i, c in enumerate(image.comps)]
-        body, pkt_lens, coords, ppt_hdrs = tc.write_packets(
-            comp_info, sop=p.sop, eph=p.eph, ppt=p.ppt or p.ppm)
-        if p.ppm:
-            ppm_chunks.append(ppt_hdrs)
-        # tile-part segmentation (-u R|L|C): split at changes of the chosen
-        # index in progression order
-        groups = _split_tile_parts(
-            coords, None if p.ppt else p.new_tile_part_progression)
-        tnsot = len(groups)
-        off = 0
-        zplt = 0  # PLT segment index: sequential per tile across tile-parts
-        for tpno, (p0, p1) in enumerate(groups):
-            glen = sum(pkt_lens[p0:p1])
-            chunk = body[off:off + glen]
-            off += glen
-            plt_seg = b""
-            if tpno == 0 and tcp.progression_changes \
-                    and getattr(p, "tile_progression_changes", None):
-                # per-tile -P mode: every tile signals its own POC in its
-                # first tile-part header
-                plt_seg += mk.write_poc(tcp.progression_changes,
-                                        image.numcomps)
-            if p.plt:
-                seg, zplt = mk.write_plt(
-                    zplt & 0xFF, pkt_lens[p0:p1], return_next=True)
-                plt_seg += seg
-            if p.plm:
-                plm_entries.append(list(pkt_lens[p0:p1]))
-            if p.ppt and not p.ppm and tpno == 0:
-                # packed packet headers: PPT segments of <= 65528 bytes
-                z = 0
-                off2 = 0
-                while off2 < len(ppt_hdrs) or z == 0:
-                    seg = ppt_hdrs[off2:off2 + 65528]
-                    plt_seg += mk.write_ppt(z & 0xFF, seg)
-                    off2 += 65528
-                    z += 1
-            psot = 12 + len(plt_seg) + 2 + len(chunk)
-            tp = bytearray()
-            tp += mk.write_sot(tidx, psot, tpno, tnsot)
-            tp += plt_seg
-            tp += mk.u16(mk.SOD)
-            tp += chunk
-            if sink is not None:
-                sink.write(tp)
-            else:
-                body_out += tp
-            tlm_entries.append((tidx, len(tp)))
-        if compressors is None:
-            # strip mode: the tile back to the pool and its device tensors
-            # dropped, so a row's bands leave the card with the row
-            tc.release()
-            del tc
-
-    if sink is not None:
-        sink.write(mk.u16(mk.EOC))
-        if p.tlm:
-            actual = mk.write_tlm(0, tlm_entries)
-            end = sink.tell()
-            sink.seek(tlm_pos)
-            gap = tlm_reserve - len(actual)
-            if gap == 0 or gap >= 6:
-                sink.write(actual)
-                sink.write(_com_filler(gap))
-            else:  # can't happen with the 255-per-tile bound; stay safe
-                log.warning("TLM (%d B) exceeds its %d B reservation; "
-                            "stream written without a TLM index",
-                            len(actual), tlm_reserve)
-                sink.write(_com_filler(tlm_reserve))
-            sink.seek(end)
-        for (_tidx, _tcp, _trect, tc) in compressors or ():
-            tc.release()
-        return b""
-
-    if p.tlm:
-        out += mk.write_tlm(0, tlm_entries)
-    if p.plm and plm_entries:
-        out += mk.write_plm(0, plm_entries)
-    if p.ppm:
-        # one Nppm-framed chunk per tile-part, split into <= 65528-byte
-        # PPM marker segments
-        stream = bytearray()
-        for chunk in ppm_chunks:
-            stream += mk.u32(len(chunk)) + chunk
-        z = 0
-        off = 0
-        while off < len(stream) or z == 0:
-            out += mk.write_ppm(z & 0xFF, bytes(stream[off:off + 65528]))
-            off += 65528
-            z += 1
-    out += body_out
-    out += mk.u16(mk.EOC)
-    for (_tidx, _tcp, _trect, tc) in compressors or ():
-        tc.release()  # geometry tree back to the pool, scrubbed
-    return bytes(out)
+    return out
 
 
 def _install_strips(image: GrkImage, cy0: int, cy1: int,

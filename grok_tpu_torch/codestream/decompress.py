@@ -34,6 +34,7 @@ from ..tile.geometry import Rect, tile_rect
 from ..tile.processor import (DeferredPlanes, TileDecompressor,
                               acquire_tile, host_backend,
                               reconstruct_device_batched, release_tile)
+from ..trace import span
 from . import markers as mk
 
 log = logging.getLogger("grok_tpu_torch")
@@ -618,47 +619,48 @@ class CodestreamDecoder:
             self.parse()
         hi = self.hi
         cp = hi.cp
-        img = self._build_image_template()
-        _, _, reduce_ = hi.reduced_dims(p.reduce)
-        if reduce_ != p.reduce:
-            self._err(f"reduce={p.reduce} exceeds available resolutions; "
-                      f"clamping to {reduce_}")
+        with span("grk/decode/tiles"):
+            img = self._build_image_template()
+            _, _, reduce_ = hi.reduced_dims(p.reduce)
+            if reduce_ != p.reduce:
+                self._err(f"reduce={p.reduce} exceeds available resolutions; "
+                          f"clamping to {reduce_}")
 
-        img_rect = Rect(hi.siz.xosiz, hi.siz.yosiz, hi.siz.xsiz, hi.siz.ysiz)
-        win = Rect(*p.window) if p.window else None
+            img_rect = Rect(hi.siz.xosiz, hi.siz.yosiz, hi.siz.xsiz, hi.siz.ysiz)
+            win = Rect(*p.window) if p.window else None
 
-        # allocate reduced-size component planes; with a decode window the
-        # canvas covers only the window (O(window) memory end to end)
-        div = 1 << reduce_
-        canvas_origin = []  # reduced-grid (ry0, rx0) per component
-        shapes = []
-        for c in img.comps:
-            if win is not None:
-                wx0 = max(-(-win.x0 // c.dx), c.x0)
-                wy0 = max(-(-win.y0 // c.dy), c.y0)
-                wx1 = min(-(-win.x1 // c.dx), c.x0 + c.w)
-                wy1 = min(-(-win.y1 // c.dy), c.y0 + c.h)
-            else:
-                wx0, wy0 = c.x0, c.y0
-                wx1, wy1 = c.x0 + c.w, c.y0 + c.h
-            rx0 = -(-wx0 // div)
-            ry0 = -(-wy0 // div)
-            rx1 = -(-wx1 // div)
-            ry1 = -(-wy1 // div)
-            shapes.append((max(0, ry1 - ry0), max(0, rx1 - rx0)))
-            canvas_origin.append((ry0, rx0))
-        # refuse BEFORE allocating: output pixels = the largest
-        # component plane (so an RGB image counts its dimensions once)
-        self._check_pixel_budget(
-            max((h0 * w0 for (h0, w0) in shapes), default=0), p)
-        try:
-            for c, shape in zip(img.comps, shapes):
-                c.data = np.zeros(shape, dtype=np.int32)
-        except MemoryError:
-            raise CodestreamError(
-                "image too large to allocate for decode") from None
+            # allocate reduced-size component planes; with a decode window the
+            # canvas covers only the window (O(window) memory end to end)
+            div = 1 << reduce_
+            canvas_origin = []  # reduced-grid (ry0, rx0) per component
+            shapes = []
+            for c in img.comps:
+                if win is not None:
+                    wx0 = max(-(-win.x0 // c.dx), c.x0)
+                    wy0 = max(-(-win.y0 // c.dy), c.y0)
+                    wx1 = min(-(-win.x1 // c.dx), c.x0 + c.w)
+                    wy1 = min(-(-win.y1 // c.dy), c.y0 + c.h)
+                else:
+                    wx0, wy0 = c.x0, c.y0
+                    wx1, wy1 = c.x0 + c.w, c.y0 + c.h
+                rx0 = -(-wx0 // div)
+                ry0 = -(-wy0 // div)
+                rx1 = -(-wx1 // div)
+                ry1 = -(-wy1 // div)
+                shapes.append((max(0, ry1 - ry0), max(0, rx1 - rx0)))
+                canvas_origin.append((ry0, rx0))
+            # refuse BEFORE allocating: output pixels = the largest
+            # component plane (so an RGB image counts its dimensions once)
+            self._check_pixel_budget(
+                max((h0 * w0 for (h0, w0) in shapes), default=0), p)
+            try:
+                for c, shape in zip(img.comps, shapes):
+                    c.data = np.zeros(shape, dtype=np.int32)
+            except MemoryError:
+                raise CodestreamError(
+                    "image too large to allocate for decode") from None
 
-        self._distribute_ppm()
+            self._distribute_ppm()
         tiles = range(cp.numtiles)
         if p.tile_index is not None:
             tiles = [p.tile_index]
@@ -689,19 +691,20 @@ class CodestreamDecoder:
             planes, rects = result
             # paste tile planes into the reduced component canvases,
             # clipped (window-produce rects carry lifting margins)
-            for compno, (plane, rr) in enumerate(zip(planes, rects)):
-                comp = img.comps[compno]
-                ry0, rx0 = canvas_origin[compno]
-                ch, cw = comp.data.shape
-                sy0 = max(0, ry0 - rr.y0)
-                sx0 = max(0, rx0 - rr.x0)
-                dy0 = max(0, rr.y0 - ry0)
-                dx0 = max(0, rr.x0 - rx0)
-                hh = min(rr.h - sy0, ch - dy0)
-                ww = min(rr.w - sx0, cw - dx0)
-                if hh > 0 and ww > 0:
-                    comp.data[dy0:dy0 + hh, dx0:dx0 + ww] = \
-                        plane[sy0:sy0 + hh, sx0:sx0 + ww]
+            with span("grk/decode/paste"):
+                for compno, (plane, rr) in enumerate(zip(planes, rects)):
+                    comp = img.comps[compno]
+                    ry0, rx0 = canvas_origin[compno]
+                    ch, cw = comp.data.shape
+                    sy0 = max(0, ry0 - rr.y0)
+                    sx0 = max(0, rx0 - rr.x0)
+                    dy0 = max(0, rr.y0 - ry0)
+                    dx0 = max(0, rr.x0 - rx0)
+                    hh = min(rr.h - sy0, ch - dy0)
+                    ww = min(rr.w - sx0, cw - dx0)
+                    if hh > 0 and ww > 0:
+                        comp.data[dy0:dy0 + hh, dx0:dx0 + ww] = \
+                            plane[sy0:sy0 + hh, sx0:sx0 + ww]
         for compno, c in enumerate(img.comps):
             c.h, c.w = c.data.shape
             c.y0, c.x0 = canvas_origin[compno]
@@ -784,29 +787,35 @@ class CodestreamDecoder:
             if trect.is_empty() or trect.w != cp.t_width \
                     or trect.h != cp.t_height:
                 continue
-            self._ensure_tile(tidx)
+            with span("grk/decode/parse"):
+                self._ensure_tile(tidx)
             parts = self.tile_parts.get(tidx)
             if not parts:
                 continue
-            tcp = self.tile_tcps.get(tidx) or cp.tcps[0]
-            tcp.ppt_data = bytes(self.tile_ppt.get(tidx, b"")) or None
-            tile = acquire_tile(tidx, trect, img, tcp)
-            td = self._tile_decompressor(tidx, tcp, tile, p, img, reduce_,
-                                         None)
-            self._decode_packets(td, tidx, b"".join(parts), p)
+            with span("grk/decode/tiles"):
+                tcp = self.tile_tcps.get(tidx) or cp.tcps[0]
+                tcp.ppt_data = bytes(self.tile_ppt.get(tidx, b"")) or None
+                tile = acquire_tile(tidx, trect, img, tcp)
+                td = self._tile_decompressor(tidx, tcp, tile, p, img,
+                                             reduce_, None)
+            with span("grk/decode/t2"):
+                self._decode_packets(td, tidx, b"".join(parts), p)
             td.run_t1()
             prepared.append((tidx, tcp, tile, td))
         if not prepared:
             return {}
-        result = reconstruct_device_batched([td for (*_, td) in prepared],
-                                            mesh=mesh)
+        with span("grk/decode/transform"):
+            result = reconstruct_device_batched(
+                [td for (*_, td) in prepared], mesh=mesh)
         out = {}
-        for (tidx, tcp, tile, td) in prepared:
-            if result is not None:
-                out[tidx] = (result[id(td)],
-                             self._plane_rects(tile, tcp, reduce_))
-            # not eligible after all: the per-tile loop redoes the decode
-            release_tile(tile)
+        with span("grk/decode/paste"):
+            for (tidx, tcp, tile, td) in prepared:
+                if result is not None:
+                    out[tidx] = (result[id(td)],
+                                 self._plane_rects(tile, tcp, reduce_))
+                # not eligible after all: the per-tile loop redoes the
+                # decode
+                release_tile(tile)
         return out
 
     def decode_tile_planes(self, tidx: int, p: DecompressParams, img,
@@ -833,7 +842,8 @@ class CodestreamDecoder:
             hit = cache.get(ckey)
             if hit is not None:
                 return hit
-        self._ensure_tile(tidx)
+        with span("grk/decode/parse"):
+            self._ensure_tile(tidx)
         parts = self.tile_parts.get(tidx)
         if not parts:
             self._err(f"no data for tile {tidx}")
@@ -845,12 +855,16 @@ class CodestreamDecoder:
             self._err(f"tile {tidx}: reduce {reduce_} exceeds the tile's "
                       f"resolution count; tile skipped")
             return None
-        tcp.ppt_data = bytes(self.tile_ppt.get(tidx, b"")) or None
-        tile = acquire_tile(tidx, trect, img, tcp)
-        td = self._tile_decompressor(tidx, tcp, tile, p, img, reduce_, win)
-        self._decode_packets(td, tidx, b"".join(parts), p)
+        with span("grk/decode/tiles"):
+            tcp.ppt_data = bytes(self.tile_ppt.get(tidx, b"")) or None
+            tile = acquire_tile(tidx, trect, img, tcp)
+            td = self._tile_decompressor(tidx, tcp, tile, p, img, reduce_,
+                                         win)
+        with span("grk/decode/t2"):
+            self._decode_packets(td, tidx, b"".join(parts), p)
         td.run_t1()
-        planes = td.reconstruct(defer=defer)
+        with span("grk/decode/transform"):
+            planes = td.reconstruct(defer=defer)
         deferred = isinstance(planes, DeferredPlanes)
         rects = (None if deferred else getattr(td, "_out_rects", None)) \
             or self._plane_rects(tile, tcp, reduce_)
@@ -860,7 +874,8 @@ class CodestreamDecoder:
         # planes/rects are independent of the tree; a deferred synthesis
         # owns its output tensor and runs on the stream its inputs were
         # made on, so the pool may take the tile back now
-        release_tile(tile)
+        with span("grk/decode/paste"):
+            release_tile(tile)
         if deferred:
             return _PendingTile(planes, rects, ckey, cache)
         result = (planes, rects)

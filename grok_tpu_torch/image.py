@@ -171,6 +171,8 @@ class GrkImage:
 
     def to_array(self) -> np.ndarray:
         """Interleave equally-sized components into (h, w, c) (or (h, w))."""
+        from .trace import root  # torch loads with the codec, not here
+
         if not self.comps:
             raise ValueError("image has no components")
         shapes = {c.data.shape for c in self.comps}
@@ -180,7 +182,8 @@ class GrkImage:
             )
         if len(self.comps) == 1:
             return self.comps[0].data
-        return np.stack([c.data for c in self.comps], axis=-1)
+        with root("grk/to_array"):
+            return np.stack([c.data for c in self.comps], axis=-1)
 
     def clip_to_precision(self) -> None:
         """Clamp every component to its declared precision range."""

@@ -45,6 +45,7 @@ from ..params import (
 )
 from ..t1 import backend as t1_backend
 from ..t2 import packets as t2
+from ..trace import span
 from ..transform import dwt as dwt_mod
 from ..transform import mct as mct_mod
 from ..transform import quant as quant_mod
@@ -444,17 +445,36 @@ class TileCompressor:
         # rate-quota early stop and ROI.
         self._enc_seq = None
         card_t1 = self.backend == "device" and _card_t1(tcp)
-        if (quota_scale is None
-                and not getattr(self.cp, "_has_quality_targets", False)
-                and t2._native is not None
-                and not card_t1
-                and t1_backend.resolve(self.backend) == "native"
-                and not getattr(self, "_device_quantized", False)
-                and not any(t.roi_shift for t in tcp.tccps)
-                and self._run_t1_tile_native_enc(need_dist)):
+        whole_tile = (quota_scale is None
+                      and not getattr(self.cp, "_has_quality_targets", False)
+                      and t2._native is not None
+                      and not card_t1
+                      and t1_backend.resolve(self.backend) == "native"
+                      and not getattr(self, "_device_quantized", False)
+                      and not any(t.roi_shift for t in tcp.tccps))
+        if whole_tile:
+            with span("grk/encode/t1"):
+                whole_tile = self._run_t1_tile_native_enc(need_dist)
+        if whole_tile:
             self._t1_jobs = []
             self._t1_need_dist = need_dist
             return
+        with span("grk/encode/t1_jobs"):
+            jobs, job_meta = self._encode_jobs(need_dist, quota_scale)
+        with span("grk/encode/t1"):
+            t1_backend.encode_batch(jobs, self.backend,
+                                    getattr(self, 'num_threads', 0),
+                                    device=self.device)
+        with span("grk/encode/t1_ingest"):
+            self._t1_jobs = list(zip(jobs, job_meta))
+            self._t1_need_dist = need_dist
+            for job, meta in self._t1_jobs:
+                self._ingest_t1_job(job, meta, need_dist)
+
+    def _encode_jobs(self, need_dist: bool, quota_scale: float | None):
+        """The tile's Tier-1 encode jobs and, for each, (compno, resno,
+        band, codeblock)."""
+        tile, tcp = self.tile, self.tcp
         jobs = []
         job_meta = []
         for compno, tc in enumerate(tile.comps):
@@ -520,13 +540,7 @@ class TileCompressor:
                                 roi_shift=tccp.roi_shift,
                                 rate_cap=cap))
                             job_meta.append((compno, res.resno, band, cblk))
-        t1_backend.encode_batch(jobs, self.backend,
-                                getattr(self, 'num_threads', 0),
-                                device=self.device)
-        self._t1_jobs = list(zip(jobs, job_meta))
-        self._t1_need_dist = need_dist
-        for job, meta in self._t1_jobs:
-            self._ingest_t1_job(job, meta, need_dist)
+        return jobs, job_meta
 
     def _ingest_t1_job(self, job, meta, need_dist: bool) -> None:
         compno, resno, band, cblk = meta
@@ -2322,10 +2336,25 @@ class TileDecompressor:
         # decode straight into them — no per-codeblock paste copies.
         # With a decode window the arrays cover only the window's span of
         # each band (SURVEY.md §2.1 SparseBuffer role: O(window) memory).
-        self._alloc_band_arrays()
+        with span("grk/decode/t1_jobs"):
+            self._alloc_band_arrays()
         self._dev_bands = None
-        if self._run_t1_tile_native():
-            return
+        with span("grk/decode/t1"):
+            if self._run_t1_tile_native():
+                return
+        with span("grk/decode/t1_jobs"):
+            jobs, meta = self._decode_jobs()
+        with span("grk/decode/t1"):
+            t1_backend.decode_batch(jobs, self.backend,
+                                    getattr(self, 'num_threads', 0),
+                                    device=self.device)
+        with span("grk/decode/t1_ingest"):
+            self._ingest_decoded(jobs, meta)
+
+    def _decode_jobs(self):
+        """The tile's Tier-1 decode jobs and, for each, (tile component,
+        resolution, band, codeblock); on a card Tier-1 tile also
+        `_dev_bands`, the device bands the decoders write into."""
         if self.backend == "device" and self.device is not None \
                 and _card_t1(self.tcp) and self._device_eligible():
             # the device decoders write into these; the synthesis takes
@@ -2386,9 +2415,11 @@ class TileDecompressor:
                                     cblk.rect.x1 - crop.x0]
                             jobs.append(job)
                             meta.append((tc, res, band, cblk))
-        t1_backend.decode_batch(jobs, self.backend,
-                                getattr(self, 'num_threads', 0),
-                                device=self.device)
+        return jobs, meta
+
+    def _ingest_decoded(self, jobs, meta) -> None:
+        """The blocks the host coder decoded, into the band arrays (and
+        up to the device bands on a card Tier-1 tile)."""
         for job, (tc, res, band, cblk) in zip(jobs, meta):
             if job.device_done:
                 continue  # a device decoder wrote the device band
