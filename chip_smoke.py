@@ -1267,10 +1267,11 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
     False not at all) and its host route (backend="native"), the decode
     against the input, and the launch and host-path counters (every
     counter in `expect` risen; `exact`, if given, the counts exactly; `mq`,
-    if given, those MQ codeblock counts exactly).  With `rate` (lossy,
-    layer_rates [rate]) the bytes are not held to the host route's and the
-    decode not to the input: lossy_checks instead.  Returns the launch
-    counts and the encoded bytes."""
+    if given, those MQ codeblock counts exactly; on an HT case without
+    ht_mixed, every HT block coded on the card in a flat tile batch).
+    With `rate` (lossy, layer_rates [rate]) the bytes are not held to the
+    host route's and the decode not to the input: lossy_checks instead.
+    Returns the launch counts and the encoded bytes."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
     from grok_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -1330,6 +1331,12 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
     if mq is not None and any(blocks[k] != v for k, v in mq.items()):
         raise AssertionError(f"case {name}: MQ codeblocks {blocks}, "
                              f"expected {mq}")
+    if kw.get("ht") and not kw.get("ht_mixed") and not (
+            blocks["ht_encode_flat"] == blocks["encode_device"] > 0
+            and blocks["ht_decode_flat"] == blocks["decode_device"]):
+        raise AssertionError(f"case {name}: HT codeblocks {blocks}, "
+                             "expected every card-coded one in a flat "
+                             "tile batch")
     same = (' and '.join(r for _, r in refs)
             or "plain route on the part coded on its own (above)")
     log(f"case {name}: {len(data)} bytes identical to the {same}, decode "
@@ -1343,7 +1350,8 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
         f"card, {blocks['mq_encode_host']} on the native coder; MQ decode "
         f"{blocks['mq_decode_device']} on the card, "
         f"{blocks['mq_decode_host']} on the native coder; e0 summed on the "
-        f"host for {blocks['e0_host']}")
+        f"host for {blocks['e0_host']}; HT in flat tile batches: encode "
+        f"{blocks['ht_encode_flat']}, decode {blocks['ht_decode_flat']}")
 
     def encode(backend):
         def run():

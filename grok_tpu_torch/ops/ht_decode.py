@@ -16,7 +16,10 @@ host-to-device copy of the segments: `grk_ht_destuff` (Scup, destuffing,
 the batch's longest stream), `grk_ht_decode` (the MEL and VLC chain of
 every block, one thread a block) and `grk_ht_magsgn` (the samples, every
 block, mixed shapes together, each written at its place in its destination
-tensor).  On the
+tensor).  A tile's
+blocks can also go as flat arrays: `flat_args` takes the bytes the
+segments lie in (a tile's stream as Tier-2 read it) and descriptor rows the
+caller built with numpy, and the same three launches run on them.  On the
 CPU it is the plain PyTorch twin `decode_cblks_ht_plain`, whose destuffing
 (`destuff_streams`) is a running sum of byte widths and one scatter of
 bits, vectorised across streams.
@@ -34,13 +37,15 @@ and sums wrap as int32.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
 from ..kernels import launch
 from ..t1 import ht_tables
 from ..t1.ht import MEL_E
-from .ht_encode import shape_ok
+from .ht_encode import check_shapes
 from .ht_meta import wrap_int32
 
 _PAD = 8            # zero bytes after every destuffed stream of the twin
@@ -87,12 +92,8 @@ def join_segments(items):
     for items of (segment, h, w); the output pointers and strides and the
     scratch and quad offsets are left 0."""
     desc = np.zeros((len(items), len(DESC)), np.int64)
-    for i, (_, h, w) in enumerate(items):
-        if not shape_ok(h, w):
-            raise ValueError("device HT path requires even, non-empty "
-                             f"codeblock dims within 4096 samples and 1024 "
-                             f"columns, got {(h, w)}")
-        desc[i, 2:4] = h, w
+    desc[:, 2:4] = [(h, w) for _, h, w in items]
+    check_shapes(desc[:, 2], desc[:, 3])
     segs = [bytes(s) for s, _, _ in items]  # memoryviews join too
     lens = np.fromiter(map(len, segs), np.int64, len(segs))
     desc[:, 4] = np.cumsum(lens) - lens
@@ -139,23 +140,38 @@ def decode_cblks_ht(items, device, out=None):
 def decode_args(items, device: torch.device, out):
     """The kernels' arguments: (desc, joined segments, scratch, streams,
     longest, rho, umax) on the device and the widest quad row, writing
-    items[i] into out[i], which must outlive the launches.  The kernels
-    read whole aligned 16-byte chunks: the joined segments are padded with
-    zeros to whole chunks, and rho and umax have 16 bytes to spare."""
+    items[i] into out[i], which must outlive the launches."""
     data, desc = join_segments(items)
     desc[:, 0] = [o.data_ptr() for o in out]
     desc[:, 1] = [o.stride(0) for o in out]
+    return flat_args(data, desc, device)
+
+
+def flat_args(data, desc: np.ndarray, device: torch.device):
+    """decode_args from the bytes the segments lie in (bytes-like or a
+    uint8 array) and descriptor rows (B, 8) int64 whose first six columns
+    the caller filled; the scratch and quad offsets are set here.  The
+    kernels read whole aligned 16-byte chunks: the bytes go up in one copy
+    to an allocation padded with zeros to whole chunks, and rho and umax
+    have 16 bytes to spare."""
     words = scratch_words(desc[:, 5])
     desc[:, 6] = np.cumsum(words) - words
     quads = (desc[:, 2] // 2) * (desc[:, 3] // 2)
     desc[:, 7] = np.cumsum(quads) - quads
     nq = int(quads.sum())
-    chunks = np.zeros(-(-len(data) // 16) * 16, np.uint8)
-    chunks[:len(data)] = data
-    return (torch.from_numpy(desc).to(device),
-            torch.from_numpy(chunks).to(device),
+    src = np.frombuffer(data, np.uint8)
+    n = len(src)
+    chunks = torch.empty(max(-(-n // 16) * 16, 16), dtype=torch.uint8,
+                         device=device)
+    chunks[n:].zero_()
+    if n:
+        with warnings.catch_warnings():
+            # read-only bytes: the tensor is only the copy's source
+            warnings.simplefilter("ignore", UserWarning)
+            chunks[:n].copy_(torch.from_numpy(src))
+    return (torch.from_numpy(desc).to(device), chunks,
             torch.empty(int(words.sum()), dtype=torch.int32, device=device),
-            torch.empty((len(items), len(STREAMS)), dtype=torch.int64,
+            torch.empty((len(desc), len(STREAMS)), dtype=torch.int64,
                         device=device),
             torch.empty(1, dtype=torch.int64, device=device),
             torch.empty(nq + 16, dtype=torch.uint8, device=device),

@@ -11,7 +11,11 @@ stuffed, the VLC stream stuffed and byte-reversed, then the two Scup bytes
 (the reference's `assemble_segments`).  On CUDA tensors one launch of
 csrc/ht_encode.cu (`grk_ht_encode`) does all of it, stuffing included, and
 writes every segment into one pool on the card; the host makes one
-device-to-host copy of the pool and slices it into segments.  On CPU
+device-to-host copy of the pool and slices it into segments.  A tile's
+blocks can also go as flat arrays: `desc_args` takes the descriptor rows
+the caller built with numpy (a block's address, row stride and shape), and
+`finish_encode_flat` hands back the pool and the per-block results as
+arrays, with no per-block Python object.  On CPU
 tensors the plain PyTorch twin `encode_cblks_ht_plain` does the same work:
 the codes of every block, packed, stuffed by `stuff_streams` (vectorised
 across streams) and assembled by index arithmetic.  The segments are
@@ -71,9 +75,10 @@ def _stuffed_max(nbits: int) -> int:
     return (nbits + 6) // 7 + 1
 
 
-def worst_case_bytes(h: int, w: int) -> int:
+def worst_case_bytes(h, w):
     """Pool bytes an (h, w) block's segment may need: every stream at its
-    longest and stuffed at 7 bits a byte, and the two Scup bytes."""
+    longest and stuffed at 7 bits a byte, and the two Scup bytes (ints, or
+    numpy arrays of them)."""
     nq = (h // 2) * (w // 2)
     return (_stuffed_max(4 * nq * _MS_MAXLEN) + _stuffed_max(
         nq * _MEL_MAXLEN + 1) + _stuffed_max(nq * _VLC_MAXLEN) + 2)
@@ -84,6 +89,18 @@ def shape_ok(h: int, w: int) -> bool:
     codeblock's limits (4096 samples, 1024 columns)."""
     return (h > 0 and w > 0 and h % 2 == 0 and w % 2 == 0
             and h * w <= 4096 and w <= 1024)
+
+
+def check_shapes(h: np.ndarray, w: np.ndarray) -> None:
+    """shape_ok over arrays of heights and widths: raise on the first
+    shape the kernels do not take."""
+    bad = ~((h > 0) & (w > 0) & (h % 2 == 0) & (w % 2 == 0)
+            & (h * w <= 4096) & (w <= 1024))
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise ValueError("device HT path requires even, non-empty "
+                         f"codeblock dims within 4096 samples and 1024 "
+                         f"columns, got {(int(h[i]), int(w[i]))}")
 
 
 def _check(blocks) -> torch.device:
@@ -139,19 +156,26 @@ def encode_args(blocks, device: torch.device, pool_cap: int | None = None):
     on the device and the launch's largest quad count and quad-row width.
     The pool holds `pool_cap` bytes, by default every block's worst case.
     The blocks must outlive the launches."""
-    shapes = [tuple(b.shape) for b in blocks]
-    desc = torch.tensor([[b.data_ptr(), b.stride(0), h, w]
-                         for b, (h, w) in zip(blocks, shapes)],
-                        dtype=torch.int64).to(device)
+    desc = np.array([[b.data_ptr(), b.stride(0), *b.shape] for b in blocks],
+                    dtype=np.int64).reshape(-1, 4)
+    return desc_args(desc, device, pool_cap)
+
+
+def desc_args(desc: np.ndarray, device: torch.device,
+              pool_cap: int | None = None):
+    """encode_args from descriptor rows built by the caller: (n, 4) int64,
+    a block's address, row stride in elements, h and w.  One copy takes
+    the rows to the device; the blocks must outlive the launches."""
+    h, w = desc[:, 2], desc[:, 3]
     if pool_cap is None:
-        pool_cap = sum(worst_case_bytes(h, w) for h, w in shapes)
-    return (desc, torch.empty(max(pool_cap, 1), dtype=torch.uint8,
-                              device=device)[:pool_cap],
+        pool_cap = int(worst_case_bytes(h, w).sum())
+    return (torch.from_numpy(np.ascontiguousarray(desc)).to(device),
+            torch.empty(max(pool_cap, 1), dtype=torch.uint8,
+                        device=device)[:pool_cap],
             torch.empty(1, dtype=torch.int64, device=device),
-            torch.empty((len(blocks), len(META)), dtype=torch.int64,
+            torch.empty((len(desc), len(META)), dtype=torch.int64,
                         device=device),
-            max((h // 2) * (w // 2) for h, w in shapes),
-            max(w // 2 for _, w in shapes))
+            int(((h // 2) * (w // 2)).max()), int((w // 2).max()))
 
 
 def launch_encode(args, device: torch.device) -> None:
@@ -168,14 +192,25 @@ def finish_encode(args):
     """The host half after a launch: the results and the pool's used
     bytes in one copy, the segments in another, then the checks and the
     slicing.  Returns encode_cblks_ht's result."""
+    data, meta = finish_encode_flat(args)
+    segs = [(data[o:o + n].tobytes(), nb) for o, n, nb in
+            meta[:, :3].tolist()]
+    return segs, meta[:, 3].tolist()
+
+
+def finish_encode_flat(args, extra: int = 0):
+    """finish_encode without the slicing: (the pool's used bytes, followed
+    by `extra` bytes left for the caller, as one uint8 array; meta (n, 5)
+    int64, META's columns), after the checks."""
     _, pool, used, meta = args[:4]
     small = torch.cat([used, meta.reshape(-1)]).cpu().numpy()
     meta = small[1:].reshape(-1, len(META))
     _raise_on(meta[:, 2], meta[:, 4])
-    data = pool[:int(small[0])].cpu().numpy()
-    segs = [(data[o:o + n].tobytes(), nb) for o, n, nb in
-            meta[:, :3].tolist()]
-    return segs, meta[:, 3].tolist()
+    n = int(small[0])
+    data = np.empty(n + extra, np.uint8)
+    if n:
+        torch.from_numpy(data[:n]).copy_(pool[:n])
+    return data, meta
 
 
 def _raise_on(numbps, status) -> None:
@@ -420,18 +455,34 @@ def _segments(x: torch.Tensor):
 
 def _encode_plain(blocks):
     """The twin: blocks of one shape together, _CHUNK at a time."""
-    segs: list = [None] * len(blocks)
-    sums: list = [None] * len(blocks)
+    data, meta = encode_plain_flat(blocks)
+    segs = [(data[o:o + n].tobytes(), nb) for o, n, nb in
+            meta[:, :3].tolist()]
+    return segs, meta[:, 3].tolist()
+
+
+def encode_plain_flat(blocks, extra: int = 0):
+    """The twin's results as finish_encode_flat gives the kernel's: every
+    block's segment in one uint8 array (with `extra` bytes to spare after
+    them) and meta (n, 5) int64, status 0."""
+    meta = np.zeros((len(blocks), len(META)), np.int64)
+    parts: list = []
     groups: dict = defaultdict(list)
     for i, b in enumerate(blocks):
         groups[tuple(b.shape)].append(i)
+    base = 0
     for idx in groups.values():
         for c0 in range(0, len(idx), _CHUNK):
             part = idx[c0:c0 + _CHUNK]
             data, offs, lens, numbps, sumsq = _segments(
                 torch.stack([blocks[i] for i in part]))
-            for i, o, n, nb, ss in zip(part, offs.tolist(), lens.tolist(),
-                                       numbps.tolist(), sumsq.tolist()):
-                segs[i] = (data[o:o + n].tobytes(), nb)
-                sums[i] = ss
-    return segs, sums
+            meta[part, 0] = offs + base
+            meta[part, 1] = lens
+            meta[part, 2] = numbps
+            meta[part, 3] = sumsq
+            parts.append(data)
+            base += len(data)
+    data = np.empty(base + extra, np.uint8)
+    if parts:
+        data[:base] = np.concatenate(parts)
+    return data, meta

@@ -19,7 +19,10 @@ dispatch between implementations:
   The rest code on the native coder.
 
 Batch API: lists of codeblock jobs so the native backend can parallelize
-freely (SURVEY.md §2.3 "codeblock-batch axis").
+freely (SURVEY.md §2.3 "codeblock-batch axis").  Under backend="device" a
+tile whose codeblocks are all HT may come instead as one flat batch
+(HTEncodeTile, HTDecodeTile): per-block numpy arrays over the tile's band
+tensors, and job objects only for the few blocks the native coder takes.
 """
 
 from __future__ import annotations
@@ -88,11 +91,13 @@ class LazyPasses:
 # count HT blocks, "mq_encode_device" and friends MQ blocks; "device" is
 # the kernels (or their twins on the CPU), "host" the native or Python
 # coder; "e0_host" counts device-coded HT blocks whose distortion e0 was
-# summed on the host (sum of squares above 2^53, see _e0)
+# summed on the host (sum of squares above 2^53, see _e0);
+# "ht_encode_flat" and "ht_decode_flat" count the HT blocks of
+# "encode_device" and "decode_device" that came in a flat tile batch
 DEVICE_CODEBLOCKS: dict[str, int] = dict.fromkeys(
     ("encode_device", "encode_host", "decode_device", "decode_host",
      "mq_encode_device", "mq_encode_host", "mq_decode_device",
-     "mq_decode_host", "e0_host"), 0)
+     "mq_decode_host", "e0_host", "ht_encode_flat", "ht_decode_flat"), 0)
 
 
 @dataclass
@@ -155,6 +160,47 @@ class DecodeJob:
     # device HT decoder writes the block there and sets device_done
     out_device: torch.Tensor | None = None
     device_done: bool = False
+
+
+@dataclass
+class HTEncodeTile:
+    """A tile's HT codeblocks for the device encoder as flat arrays.
+    `bands`: int32 band tensors on the device, by band id; `blk` (n, 5)
+    int64: a device block's band id, row and column in its band, h and w;
+    `desc`: grk_ht_encode's rows for them (address, row stride, h, w);
+    `host`: jobs for the blocks the native coder takes.  encode_batch sets
+    `data`, every segment in one uint8 array (the device blocks' first,
+    then the host jobs'), and `offs`, `lens`, `numbps`, one entry a block
+    in that order."""
+    bands: list
+    blk: np.ndarray
+    desc: np.ndarray
+    host: list
+    data: np.ndarray | None = None
+    offs: np.ndarray | None = None
+    lens: np.ndarray | None = None
+    numbps: np.ndarray | None = None
+
+
+@dataclass
+class HTDecodeTile:
+    """A tile's HT codeblocks for the device decoder as flat arrays.
+    `data`: the bytes the segments lie in (the tile's stream); `desc` (n, 8)
+    int64: the first six DESC columns of ops/ht_decode.py for the device
+    blocks (output address and row stride in a device band, h, w, segment
+    offset in `data` and length); `bands`, `blk` as HTEncodeTile's for
+    those outputs; `host`: jobs for the blocks the native coder takes,
+    decoded into host band arrays."""
+    data: object
+    desc: np.ndarray
+    bands: list
+    blk: np.ndarray
+    host: list
+
+
+def _views(bands, blk) -> list[torch.Tensor]:
+    """The blocks of a flat batch as views of its band tensors."""
+    return [bands[b][y:y + h, x:x + w] for b, y, x, h, w in blk.tolist()]
 
 
 def _encode_python(jobs: list[EncodeJob], num_threads: int = 0) -> None:
@@ -416,13 +462,107 @@ def _need_device(device) -> torch.device:
     return torch.device(device)
 
 
-def encode_batch(jobs: list[EncodeJob], backend: str = "device",
-                 num_threads: int = 0, device=None) -> None:
+def _kernel_route(device: torch.device) -> bool:
+    """A flat tile batch runs the kernels on CUDA and the twins on the
+    CPU; other devices raise."""
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel route for device {device}")
+    return device.type == "cuda"
+
+
+def _encode_ht_tile(t: HTEncodeTile, backend: str, num_threads: int,
+                    device: torch.device) -> None:
+    """A flat tile batch: one launch of the cleanup encoder (the twin on
+    the CPU) for the device blocks, the native coder for the host jobs
+    while the card works, and one result array for both."""
+    from ..ops import ht_encode as dht
+
+    n = len(t.blk)
+    args = None
+    if n and _kernel_route(device):
+        args = dht.desc_args(t.desc, device)
+        dht.launch_encode(args, device)
+    _encode_ht_host(t.host, backend, num_threads)
+    lens_h = np.fromiter((len(j.data) for j in t.host), np.int64,
+                         len(t.host))
+    extra = int(lens_h.sum())
+    if args is not None:
+        data, meta = dht.finish_encode_flat(args, extra)
+    elif n:
+        data, meta = dht.encode_plain_flat(_views(t.bands, t.blk), extra)
+    else:
+        data, meta = np.empty(extra, np.uint8), np.zeros((0, 5), np.int64)
+    used = len(data) - extra
+    offs_h = used + np.cumsum(lens_h) - lens_h
+    for j, o in zip(t.host, offs_h.tolist()):
+        data[o:o + len(j.data)] = np.frombuffer(j.data, np.uint8)
+    t.data = data
+    t.offs = np.concatenate([meta[:, 0], offs_h])
+    t.lens = np.concatenate([meta[:, 1], lens_h])
+    t.numbps = np.concatenate([meta[:, 2], np.fromiter(
+        (j.numbps for j in t.host), np.int64, len(t.host))])
+    DEVICE_CODEBLOCKS["encode_device"] += n
+    DEVICE_CODEBLOCKS["ht_encode_flat"] += n
+    DEVICE_CODEBLOCKS["encode_host"] += len(t.host)
+
+
+def _decode_ht_tile(t: HTDecodeTile, backend: str, num_threads: int,
+                    device: torch.device) -> None:
+    """A flat tile batch: the three decode launches (the twin on the CPU)
+    for the device blocks, writing their device bands, and the native
+    coder for the host jobs."""
+    from ..ops import ht_decode as dht
+
+    n = len(t.desc)
+    if n and _kernel_route(device):
+        dht.launch_decode(dht.flat_args(t.data, t.desc, device), device)
+    elif n:
+        mv = memoryview(t.data)
+        items = [(mv[o:o + ln], h, w) for h, w, o, ln in
+                 t.desc[:, 2:6].tolist()]
+        dht.decode_cblks_ht_plain(items, device, _views(t.bands, t.blk))
+    DEVICE_CODEBLOCKS["decode_device"] += n
+    DEVICE_CODEBLOCKS["ht_decode_flat"] += n
+    DEVICE_CODEBLOCKS["decode_host"] += len(t.host)
+    _decode_ht_host(t.host, backend, num_threads)
+
+
+def _encode_ht_host(jobs: list[EncodeJob], backend: str,
+                    num_threads: int) -> None:
+    """HT jobs on the host coder: native where it loaded, else Python."""
+    if not jobs:
+        return
+    for j in jobs:  # native HT ingest has no fused quantizer
+        _materialize_quant(j)
+    if resolve(backend) == "native" and _HT_NATIVE is not None and \
+            backend != "python":
+        _HT_NATIVE[0](jobs, num_threads)
+    else:
+        _encode_ht(jobs)
+
+
+def _decode_ht_host(jobs: list[DecodeJob], backend: str,
+                    num_threads: int) -> None:
+    if not jobs:
+        return
+    if resolve(backend) == "native" and _HT_NATIVE is not None and \
+            backend != "python":
+        _HT_NATIVE[1](jobs, num_threads)
+    else:
+        _decode_ht(jobs)
+
+
+def encode_batch(jobs: list[EncodeJob] | HTEncodeTile,
+                 backend: str = "device", num_threads: int = 0,
+                 device=None) -> None:
     """num_threads sizes the native thread pool (-H parity; 0 = all
     cores).  Output is byte-identical for any thread count — jobs are
     independent and land in per-job buffers (the reference's determinism
     invariant, SURVEY.md §4).  `device` is where backend="device" codes
-    its device-eligible blocks."""
+    its device-eligible blocks; an HTEncodeTile is coded there too."""
+    if isinstance(jobs, HTEncodeTile):
+        _encode_ht_tile(jobs, backend, num_threads, _need_device(device))
+        return
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]
     if mq_jobs and backend == "device":
@@ -436,15 +576,7 @@ def encode_batch(jobs: list[EncodeJob], backend: str = "device",
     if backend == "device":
         DEVICE_CODEBLOCKS["encode_host"] += len(ht_jobs)
         DEVICE_CODEBLOCKS["mq_encode_host"] += len(mq_jobs)
-    if ht_jobs:
-        name = resolve(backend)
-        for j in ht_jobs:  # native HT ingest has no fused quantizer
-            _materialize_quant(j)
-        if name == "native" and _HT_NATIVE is not None and \
-                backend != "python":
-            _HT_NATIVE[0](ht_jobs, num_threads)
-        else:
-            _encode_ht(ht_jobs)
+    _encode_ht_host(ht_jobs, backend, num_threads)
     if mq_jobs:
         name = resolve(backend)
         if name != "native":  # the native MQ coder fuses quant/ROI
@@ -453,8 +585,12 @@ def encode_batch(jobs: list[EncodeJob], backend: str = "device",
         _BACKENDS[name][0](mq_jobs, num_threads)
 
 
-def decode_batch(jobs: list[DecodeJob], backend: str = "device",
-                 num_threads: int = 0, device=None) -> None:
+def decode_batch(jobs: list[DecodeJob] | HTDecodeTile,
+                 backend: str = "device", num_threads: int = 0,
+                 device=None) -> None:
+    if isinstance(jobs, HTDecodeTile):
+        _decode_ht_tile(jobs, backend, num_threads, _need_device(device))
+        return
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]
     if mq_jobs and backend == "device":
@@ -464,13 +600,7 @@ def decode_batch(jobs: list[DecodeJob], backend: str = "device",
     if backend == "device":
         DEVICE_CODEBLOCKS["decode_host"] += len(ht_jobs)
         DEVICE_CODEBLOCKS["mq_decode_host"] += len(mq_jobs)
-    if ht_jobs:
-        name = resolve(backend)
-        if name == "native" and _HT_NATIVE is not None and \
-                backend != "python":
-            _HT_NATIVE[1](ht_jobs, num_threads)
-        else:
-            _decode_ht(ht_jobs)
+    _decode_ht_host(ht_jobs, backend, num_threads)
     if mq_jobs:
         name = resolve(backend)
         _BACKENDS[name][1](mq_jobs, num_threads)

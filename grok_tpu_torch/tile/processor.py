@@ -82,6 +82,13 @@ def host_backend(backend: str) -> str:
     return backend
 
 
+def _resolved(device: torch.device) -> torch.device:
+    """`device` with its index, as a tensor made there reports it."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _card_t1(tcp) -> bool:
     """Whether backend="device" codes blocks of this tile on the device:
     it has HT blocks, or MQ blocks of a style the device MQ coders take."""
@@ -466,14 +473,24 @@ class TileCompressor:
                                     getattr(self, 'num_threads', 0),
                                     device=self.device)
         with span("grk/encode/t1_ingest"):
-            self._t1_jobs = list(zip(jobs, job_meta))
             self._t1_need_dist = need_dist
+            if isinstance(jobs, t1_backend.HTEncodeTile):
+                self._t1_jobs = []
+                self._ingest_ht_tile(jobs, job_meta)
+                return
+            self._t1_jobs = list(zip(jobs, job_meta))
             for job, meta in self._t1_jobs:
                 self._ingest_t1_job(job, meta, need_dist)
 
     def _encode_jobs(self, need_dist: bool, quota_scale: float | None):
         """The tile's Tier-1 encode jobs and, for each, (compno, resno,
-        band, codeblock)."""
+        band, codeblock); or, where the tile's HT blocks code on the device
+        as flat arrays (_ht_tile_encode), one t1_backend.HTEncodeTile and
+        the statics it was built from."""
+        if not need_dist and quota_scale is None:
+            flat = self._ht_tile_encode()
+            if flat is not None:
+                return flat
         tile, tcp = self.tile, self.tcp
         jobs = []
         job_meta = []
@@ -704,6 +721,119 @@ class TileCompressor:
                    mb_g, np.asarray(flags, np.int32), gmap, cblks, bid_g)
         self.tile._t1enc_cache = (skey, statics)
         return statics
+
+    def _ht_tile_encode(self):
+        """The card route of a whole HT tile as flat arrays: (HTEncodeTile,
+        statics), or None where the tile keeps the per-codeblock route.  It
+        takes a tile whose components are all HT (not ht_mixed), with no
+        ROI and no -q target, whose bands are int32 tensors on the device;
+        the caller has checked that no distortion is tracked and no rate
+        quota set.  Per call the descriptor rows are one array expression
+        over the cached statics and the bands' addresses; the blocks the
+        native coder takes (odd sizes, numbps over the device's) come to
+        the host a band at a time, as jobs."""
+        tcp = self.tcp
+        if (self.backend != "device" or self.device is None
+                or getattr(self.cp, "ht_mixed", False)
+                or getattr(self.cp, "_has_quality_targets", False)
+                or not all(t.ht and not t.roi_shift for t in tcp.tccps)):
+            return None
+        st = self._t1enc_statics()
+        fl = self._ht_tile_statics(st)
+        if fl is None:
+            return None
+        band_keys = st[5]
+        dev = _resolved(self.device)
+        bands: list = [None] * len(band_keys)
+        base = np.zeros(len(band_keys), np.int64)
+        stride = np.zeros(len(band_keys), np.int64)
+        for i in fl["used"]:
+            compno, resno, orient = band_keys[i]
+            data = self.tile.comps[compno].data
+            t = data.get((resno, orient)) if data is not None else None
+            if (not isinstance(t, torch.Tensor) or t.device != dev
+                    or t.dtype != torch.int32 or t.dim() != 2
+                    or t.shape[1] != st[6][i]
+                    or (t.shape[1] > 1 and t.stride(1) != 1)):
+                return None
+            bands[i] = t
+            base[i] = t.data_ptr()
+            stride[i] = t.stride(0)
+        blk = fl["blk"]
+        b = blk[:, 0]
+        desc = np.empty((len(blk), 4), np.int64)
+        desc[:, 0] = base[b] + (blk[:, 1] * stride[b] + blk[:, 2]) * 4
+        desc[:, 1] = stride[b]
+        desc[:, 2:] = blk[:, 3:]
+        host = []
+        if len(fl["host"]):
+            on_host: dict = {}
+            for bi, y, x, h, w, orient, style, mb in fl["host"].tolist():
+                a = on_host.get(bi)
+                if a is None:
+                    a = on_host[bi] = bands[bi].cpu().numpy()
+                host.append(t1_backend.EncodeJob(
+                    a[y:y + h, x:x + w], orient, style, ht=True,
+                    need_dist=False, numbps_bound=mb))
+        return t1_backend.HTEncodeTile(bands, blk, desc, host), (st, fl)
+
+    def _ht_tile_statics(self, st):
+        """What _ht_tile_encode and _ingest_ht_tile read of the tile's
+        encode statics, cached on the tile beside them: the device blocks
+        (band id, row and column in the band, h, w), the host blocks (the
+        same with orient, style and mb), the bands either reads, the global
+        indices of both in the batch's order."""
+        cached = getattr(self.tile, "_ht_tile_cache", None)
+        if cached is not None and cached[0] is st:
+            return cached[1]
+        ncb, hw, meta, _, coff, band_keys, bstride = st[:7]
+        if ncb == 0:
+            return None
+        from ..ops import ht_encode as dht
+
+        hw = hw.reshape(-1, 2).astype(np.int64)
+        m4 = meta.reshape(-1, 4).astype(np.int64)
+        h, w, bid, mb = hw[:, 0], hw[:, 1], m4[:, 3], m4[:, 2]
+        bw = bstride.astype(np.int64)[bid]
+        coded = (h > 0) & (w > 0)
+        on_dev = coded & (h % 2 == 0) & (w % 2 == 0) & (
+            mb <= dht.MAX_NUMBPS_DEVICE)
+        dev_g = np.flatnonzero(on_dev)
+        host_g = np.flatnonzero(coded & ~on_dev)
+        dht.check_shapes(h[dev_g], w[dev_g])
+        cols = np.stack([bid, coff // bw, coff % bw, h, w, m4[:, 0],
+                         m4[:, 1], mb], 1)
+        fl = {"blk": np.ascontiguousarray(cols[dev_g, :5]),
+              "host": cols[host_g],
+              "used": np.unique(bid[coded]).tolist(),
+              "order": np.concatenate([dev_g, host_g])}
+        self.tile._ht_tile_cache = (st, fl)
+        return fl
+
+    def _ingest_ht_tile(self, t, statics) -> None:
+        """A flat HT tile's results into the whole-tile encode arrays
+        (_EncSeq) that _assign_layers_flat and _write_packets_seq read, as
+        the native whole-tile encode leaves them: one cleanup pass a coded
+        block, its length the pass's rate."""
+        st, fl = statics
+        ncb, mb_g, isht_g, gmap, cblks = st[0], st[11], st[12], st[13], \
+            st[14]
+        order = fl["order"]
+        offs = np.zeros(ncb, np.int64)
+        lens = np.zeros(ncb, np.int32)
+        numbps = np.zeros(ncb, np.int32)
+        offs[order] = t.offs
+        lens[order] = t.lens
+        numbps[order] = t.numbps
+        for g in np.flatnonzero(numbps > mb_g).tolist():
+            log.warning("codeblock numbps %d exceeds band M_b %d",
+                        numbps[g], mb_g[g])
+            numbps[g] = mb_g[g]
+        self._enc_seq = _EncSeq(
+            arena=t.data, offs=offs, lens=lens, numbps=numbps,
+            npasses=(numbps > 0).astype(np.int32), zb=mb_g - numbps,
+            isht=isht_g, rates=lens.reshape(ncb, 1), stride=1, gmap=gmap,
+            cblks=cblks, ncb=ncb)
 
     def _run_t1_tile_native_enc(self, need_dist: bool = False) -> bool:
         """Whole-tile native Tier-1 encode: every codeblock coded from
@@ -2220,9 +2350,10 @@ class TileDecompressor:
     def _decode_packets_seq(self, data, order) -> bool:
         """Whole-tile native packet-sequence decode (the band-batched
         run_t1 roadmap item, decode side): one C call parses every
-        inline packet header and body range (grk_t2_decode_seq), then a
-        single bulk pass mirrors the per-codeblock state from compact
-        chunk records.  Only the common case routes here (no SOP/EPH/
+        inline packet header and body range (grk_t2_decode_seq) into
+        compact chunk records, which the whole-tile Tier-1 routes read as
+        they are and the per-codeblock route mirrors into the codeblocks
+        (_mirror_seq).  Only the common case routes here (no SOP/EPH/
         PPT, no window/reduce/layer skipping — the caller gates); a
         malformed header mid-sequence resets the native precinct state
         and returns False so the per-packet path reruns from scratch
@@ -2255,6 +2386,28 @@ class TileDecompressor:
             for b, h, mbl, mx in handles:
                 h.reset()
             return False
+        n = int(nrec.value)
+        recs = (np.ctypeslib.as_array(recs_p, shape=(n * 4,)).copy() if n
+                else np.empty(0, np.int32))
+        # run_t1's whole-tile paths consume these records (plus the stream
+        # bytes) instead of re-walking the codeblock objects; the
+        # per-codeblock route mirrors them first (_mirror_seq)
+        self._seq_result = (recs, data, g_zb, g_isht, ncb_total,
+                            t1_statics, cblk_by_g)
+        self._seq_mirror = (handles, g_newly)
+        return True
+
+    def _mirror_seq(self) -> None:
+        """Mirror a packet-sequence decode into the codeblocks' decoder
+        state (first inclusion, codeword segments in arrival order), which
+        the per-codeblock Tier-1 route reads; the whole-tile routes read
+        the records and never call this."""
+        mirror = getattr(self, "_seq_mirror", None)
+        if mirror is None:
+            return
+        self._seq_mirror = None
+        handles, g_newly = mirror
+        recs, data, g_zb, g_isht, _, _, cblk_by_g = self._seq_result
         # first-inclusion state: touched codeblocks only (bulk tolist —
         # per-element numpy scalar reads dominate otherwise)
         zb_l = g_zb.tolist()
@@ -2271,25 +2424,16 @@ class TileDecompressor:
                 if mx:
                     cblk.is_ht = bool(isht_l[g])
         # codeword segments, in arrival order
-        n = int(nrec.value)
-        if n:
+        if len(recs):
             mv = memoryview(data)
-            recs = np.ctypeslib.as_array(recs_p, shape=(n * 4,)).copy()
             rl = recs.tolist()
-            for r in range(0, n * 4, 4):
+            for r in range(0, len(rl), 4):
                 cblk = cblk_by_g[rl[r]]
                 np_ = rl[r + 1]
                 off = rl[r + 2]
                 cblk.seg_data.append(mv[off:off + rl[r + 3]])
                 cblk.seg_passes.append(np_)
                 cblk.total_passes += np_
-        else:
-            recs = np.empty(0, np.int32)
-        # run_t1's native whole-tile path consumes these records (plus
-        # the stream bytes) instead of re-walking the codeblock objects
-        self._seq_result = (recs, data, g_zb, g_isht, ncb_total,
-                            t1_statics)
-        return True
 
     def _window_produce(self, compno: int) -> dict | None:
         """Per-resolution rects the window-aware synthesis reconstructs for
@@ -2352,16 +2496,19 @@ class TileDecompressor:
             self._ingest_decoded(jobs, meta)
 
     def _decode_jobs(self):
-        """The tile's Tier-1 decode jobs and, for each, (tile component,
-        resolution, band, codeblock); on a card Tier-1 tile also
-        `_dev_bands`, the device bands the decoders write into."""
-        if self.backend == "device" and self.device is not None \
-                and _card_t1(self.tcp) and self._device_eligible():
+        """The tile's Tier-1 decode jobs and, for each, its band's key and
+        its rect; on a card Tier-1 tile also `_dev_bands`, the device bands
+        the decoders write into.  Where the tile's HT blocks decode on the
+        device as flat arrays (_ht_tile_decode) the jobs are one
+        t1_backend.HTDecodeTile, with keys and rects for its host jobs."""
+        if self._card_tile():
             # the device decoders write into these; the synthesis takes
             # them
-            self._dev_bands = {
-                k: torch.zeros(a.shape, dtype=torch.int32, device=self.device)
-                for k, a in self._band_arrays.items()}
+            self._alloc_dev_bands()
+            flat = self._ht_tile_decode()
+            if flat is not None:
+                return flat
+        self._mirror_seq()
         jobs = []
         meta = []
         mixed = getattr(self.cp, "ht_mixed", False)
@@ -2414,23 +2561,119 @@ class TileDecompressor:
                                     cblk.rect.x0 - crop.x0:
                                     cblk.rect.x1 - crop.x0]
                             jobs.append(job)
-                            meta.append((tc, res, band, cblk))
+                            meta.append((key, cblk.rect))
         return jobs, meta
+
+    def _alloc_dev_bands(self) -> None:
+        """`_dev_bands`: a zeroed device tensor a band, as views of one
+        allocation."""
+        shapes = [a.shape for a in self._band_arrays.values()]
+        sizes = [h * w for h, w in shapes]
+        flat = torch.zeros(sum(sizes), dtype=torch.int32, device=self.device)
+        self._dev_bands = {
+            k: t.view(shape) for k, t, shape in zip(
+                self._band_arrays, flat.split(sizes), shapes)}
+
+    def _ht_tile_decode(self):
+        """The card route of a whole HT tile as flat arrays: (HTDecodeTile,
+        keys and rects of its host jobs), or None where the tile keeps the
+        per-codeblock route.  It takes a tile of `_device_eligible` whose
+        components are all HT (not ht_mixed), whose packets the sequence
+        decode read (_seq_result), and in which no block has more than one
+        chunk; `_dev_bands` must be allocated.  The descriptor rows come
+        from the chunk records and the cached statics in one array
+        expression, the segments stay where they lie in the tile's stream,
+        and only the blocks the native coder takes (odd sizes) become
+        jobs, decoded into the host band arrays."""
+        seq = getattr(self, "_seq_result", None)
+        if (seq is None or getattr(self.cp, "ht_mixed", False)
+                or not all(t.ht for t in self.tcp.tccps)):
+            return None
+        recs, data, g_zb, _, ncb, t1_statics, cblk_by_g = seq
+        fl = self._ht_tile_dec_statics(t1_statics, ncb)
+        if fl is None:
+            return None
+        r = recs.reshape(-1, 4).astype(np.int64)
+        g = r[:, 0]
+        if len(g) and (g.min() < 0 or g.max() >= ncb
+                       or np.bincount(g, minlength=ncb).max() > 1
+                       or r[:, 2:].min() < 0
+                       or (r[:, 2] + r[:, 3]).max() > len(data)):
+            return None
+        r = r[(r[:, 1] > 0) & fl["coded"][g]]
+        on_dev = fl["on_dev"][r[:, 0]]
+        rd = r[on_dev]
+        blk = fl["blk"][rd[:, 0]]
+        band_keys = t1_statics[4]
+        bands = [self._dev_bands[k] for k in band_keys]
+        ptr = np.fromiter((t.data_ptr() for t in bands), np.int64,
+                          len(bands))
+        b = blk[:, 0]
+        desc = np.empty((len(rd), 8), np.int64)
+        desc[:, 0] = ptr[b] + (blk[:, 1] * fl["bw"][b] + blk[:, 2]) * 4
+        desc[:, 1] = fl["bw"][b]
+        desc[:, 2:4] = blk[:, 3:5]
+        desc[:, 4:6] = rd[:, 2:4]
+        host, meta = [], []
+        mv = memoryview(data)
+        for gg, np_, off, ln in r[~on_dev].tolist():
+            bi, y, x, h, w, orient, style, mb = fl["cols"][gg].tolist()
+            key = band_keys[bi]
+            job = t1_backend.DecodeJob(
+                mv[off:off + ln], [ln], np_, mb - int(g_zb[gg]), h, w,
+                orient, style, ht=True)
+            job.out_dest = self._band_arrays[key][y:y + h, x:x + w]
+            host.append(job)
+            meta.append((key, cblk_by_g[gg].rect))
+        return t1_backend.HTDecodeTile(data, desc, bands, blk, host), meta
+
+    def _ht_tile_dec_statics(self, t1_statics, ncb: int):
+        """What _ht_tile_decode reads of the sequence decode's Tier-1
+        statics, cached on the tile beside them: per global block its band
+        id, row and column in the band, h, w, orient, style and mb, whether
+        it is coded at all and whether on the device, and the bands'
+        widths; None where the band arrays are not the statics' shapes."""
+        st_hw, st_meta, _, st_off, band_keys, band_shapes = t1_statics
+        if len(st_off) != ncb or any(
+                self._band_arrays.get(k) is None
+                or self._band_arrays[k].shape != shape
+                for k, shape in zip(band_keys, band_shapes)):
+            return None
+        cached = getattr(self.tile, "_ht_tile_dec_cache", None)
+        if cached is not None and cached[0] is t1_statics:
+            return cached[1]
+        from ..ops import ht_encode as dht
+
+        hw = st_hw.reshape(-1, 2).astype(np.int64)
+        m4 = st_meta.reshape(-1, 4).astype(np.int64)
+        h, w, bid = hw[:, 0], hw[:, 1], m4[:, 3]
+        bw = np.asarray([max(s[1], 1) for s in band_shapes], np.int64)
+        off = st_off.astype(np.int64)
+        coded = (h > 0) & (w > 0)
+        on_dev = coded & (h % 2 == 0) & (w % 2 == 0)
+        dht.check_shapes(h[on_dev], w[on_dev])
+        cols = np.stack([bid, off // bw[bid], off % bw[bid], h, w, m4[:, 0],
+                         m4[:, 1], m4[:, 2]], 1)
+        fl = {"cols": cols, "blk": np.ascontiguousarray(cols[:, :5]),
+              "coded": coded, "on_dev": on_dev, "bw": bw}
+        self.tile._ht_tile_dec_cache = (t1_statics, fl)
+        return fl
 
     def _ingest_decoded(self, jobs, meta) -> None:
         """The blocks the host coder decoded, into the band arrays (and
         up to the device bands on a card Tier-1 tile)."""
-        for job, (tc, res, band, cblk) in zip(jobs, meta):
+        if isinstance(jobs, t1_backend.HTDecodeTile):
+            jobs = jobs.host
+        for job, (key, rect) in zip(jobs, meta):
             if job.device_done:
                 continue  # a device decoder wrote the device band
-            key = (tc.compno, res.resno, band.orient)
             arr = self._band_arrays[key]
             crop = self._band_offsets[key]
             if self._dev_bands is not None:
                 # a block the host coder decoded goes up on its own (the
                 # device tiles have no window, crop or ROI)
-                rows = slice(cblk.rect.y0 - crop.y0, cblk.rect.y1 - crop.y0)
-                cols = slice(cblk.rect.x0 - crop.x0, cblk.rect.x1 - crop.x0)
+                rows = slice(rect.y0 - crop.y0, rect.y1 - crop.y0)
+                cols = slice(rect.x0 - crop.x0, rect.x1 - crop.x0)
                 if not job.direct_done:
                     arr[rows, cols] = job.out
                 self._dev_bands[key][rows, cols].copy_(
@@ -2439,7 +2682,7 @@ class TileDecompressor:
             if job.direct_done:
                 continue  # native backend wrote the band array in place
             out = job.out
-            shift = self.tcp.tccps[tc.compno].roi_shift
+            shift = self.tcp.tccps[key[0]].roi_shift
             if shift:
                 # max-shift ROI: values at/above 2^shift are ROI samples;
                 # downshift them (operating in the doubled domain)
@@ -2449,13 +2692,13 @@ class TileDecompressor:
                 out = np.where(out < 0, -mag, mag).astype(np.int32)
             # clipped paste: an intersecting codeblock may extend past the
             # window crop
-            ix = cblk.rect.intersect(crop)
+            ix = rect.intersect(crop)
             if ix.is_empty():
                 continue
             arr[ix.y0 - crop.y0:ix.y1 - crop.y0,
                 ix.x0 - crop.x0:ix.x1 - crop.x0] = \
-                out[ix.y0 - cblk.rect.y0:ix.y1 - cblk.rect.y0,
-                    ix.x0 - cblk.rect.x0:ix.x1 - cblk.rect.x0]
+                out[ix.y0 - rect.y0:ix.y1 - rect.y0,
+                    ix.x0 - rect.x0:ix.x1 - rect.x0]
 
     def _run_t1_tile_native(self) -> bool:
         """Whole-tile native Tier-1 decode (grk_t1_decode_tile): consume
@@ -2474,7 +2717,7 @@ class TileDecompressor:
             return False  # blocks decode on the device
         if any(t.roi_shift for t in self.tcp.tccps):
             return False
-        recs, data, g_zb, g_isht, ncb_total, t1_statics = seq
+        recs, data, g_zb, g_isht, ncb_total, t1_statics, _ = seq
         st_hw, st_meta, st_flags, st_off, band_keys, band_shapes = \
             t1_statics
         if len(st_flags) != ncb_total:
@@ -2500,8 +2743,17 @@ class TileDecompressor:
             getattr(self, "num_threads", 0))
         return rc >= 0
 
+    def _card_tile(self) -> bool:
+        """Whether the device decoders write this tile's bands on the
+        device (`_dev_bands`) and the synthesis takes them there."""
+        return (self.backend == "device" and self.device is not None
+                and _card_t1(self.tcp) and self._device_eligible())
+
     def _alloc_band_arrays(self) -> None:
-        self._band_arrays = {}
+        """Zeroed host band arrays, each cropped to the decode window.  On
+        a card tile only the blocks the host coder decodes land in them,
+        so they are views of one allocation, large enough that its pages
+        are zeroed where they are first touched, not all up front."""
         self._band_offsets = {}
         for tc in self.tile.comps:
             tccp = self.tcp.tccps[tc.compno]
@@ -2514,9 +2766,18 @@ class TileDecompressor:
                     if wrect is not None:
                         crop = band.rect.intersect(wrect)
                     key = (tc.compno, res.resno, band.orient)
-                    self._band_arrays[key] = np.zeros(
-                        (max(0, crop.h), max(0, crop.w)), dtype=np.int32)
                     self._band_offsets[key] = crop
+        shapes = [(max(0, c.h), max(0, c.w))
+                  for c in self._band_offsets.values()]
+        if self._card_tile():
+            sizes = [h * w for h, w in shapes]
+            parts = np.split(np.zeros(sum(sizes), np.int32),
+                             np.cumsum(sizes)[:-1])
+            self._band_arrays = {k: a.reshape(shape) for k, a, shape in zip(
+                self._band_offsets, parts, shapes)}
+        else:
+            self._band_arrays = {k: np.zeros(shape, np.int32) for k, shape
+                                 in zip(self._band_offsets, shapes)}
 
     def _device_band(self, key) -> torch.Tensor:
         if self._dev_bands is not None:

@@ -220,7 +220,11 @@ def test_codec_matches_reference(rng, name, make, kw, prec):
     device and native routes byte for byte, and decodes exactly through
     the port's device route; the HT blocks code on the device route, the
     ragged ones on the native coder (counted), and ht_mixed's MQ blocks on
-    the device route's MQ coders."""
+    the device route's MQ coders.  A tile of HT blocks with no tracked
+    distortion codes as one flat batch (every device-coded block counted
+    in ht_encode_flat); so decodes every tile of HT blocks of one chunk
+    each, which cleanup-only HT blocks are in any number of layers, and
+    no ht_mixed tile either way."""
     arr = make(rng)
     ref_img = grok_tpu.GrkImage.from_array(arr)
     if prec:
@@ -250,6 +254,12 @@ def test_codec_matches_reference(rng, name, make, kw, prec):
     if name == "ht_mixed":
         assert counts["mq_encode_device"] > 0
     assert (counts["e0_host"] > 0) == (name == "deep_e0")
+    flat_encode = name in ("gray96_numres3", "rgb12_jp2", "tiles64",
+                           "odd_edge_blocks")
+    assert counts["ht_encode_flat"] == (counts["encode_device"]
+                                        if flat_encode else 0)
+    assert counts["ht_decode_flat"] == (counts["decode_device"]
+                                        if name != "ht_mixed" else 0)
 
 
 def test_python_backend_codes_ht(rng):
@@ -301,6 +311,53 @@ def test_host_tiles_match_reference(rng, name, kw, dkw):
     want = grok_tpu.decompress(ref, grok_tpu.DecompressParams(**dkw))
     assert np.array_equal(out.to_array(), want.to_array())
     assert counts["encode_device"] > 0 and counts["decode_device"] > 0
+    # no flat batch for a tile with an ROI or a windowed or reduced
+    # decode; the other encodes, and the odd origin's decode, are flat
+    assert counts["ht_encode_flat"] == (counts["encode_device"]
+                                        if name != "roi" else 0)
+    assert counts["ht_decode_flat"] == (counts["decode_device"]
+                                        if name == "odd_origin" else 0)
+
+
+def _tile_parts(data: bytes):
+    """(start of the tile-part data after SOD, end) of each tile-part of
+    a codestream whose tile-parts follow one another from the first SOT."""
+    out = []
+    pos = data.index(b"\xff\x90")
+    while pos + 12 <= len(data) and data[pos:pos + 2] == b"\xff\x90":
+        psot = int.from_bytes(data[pos + 6:pos + 10], "big")
+        sod = data.index(b"\xff\x93", pos + 12)
+        out.append((sod + 2, pos + psot))
+        pos += psot
+    return out
+
+
+def test_flat_tiles_decode_corrupt_streams_as_reference_device(rng):
+    """A multi-tile HT codestream with bytes flipped in the last packet
+    bodies of every tile, and one cut short inside its last tile, decode
+    on the port's flat route (one batch a tile, as grok_tpu's router
+    makes: a corrupt block's decode depends on its batch) to what
+    grok_tpu's device decode gives."""
+    arr = rng.integers(0, 256, (96, 128)).astype(np.uint8)
+    kw = dict(ht=True, numresolution=3, tile_size=(64, 64))
+    data = grok_tpu.compress(grok_tpu.GrkImage.from_array(arr),
+                             grok_tpu.CompressParams(**kw))
+    parts = _tile_parts(data)
+    assert len(parts) == 4
+    bad = np.frombuffer(data, np.uint8).copy()
+    for start, end in parts:
+        at = rng.integers(start + (end - start) * 3 // 4, end, 6)
+        bad[at] ^= rng.integers(1, 256, 6).astype(np.uint8)
+    start, end = parts[-1]
+    for stream in (bad.tobytes(), data[:start + (end - start) * 2 // 3]):
+        counts = t1_backend.DEVICE_CODEBLOCKS
+        for k in counts:
+            counts[k] = 0
+        out = grok_tpu_torch.decompress(stream, device="cpu").to_array()
+        want = grok_tpu.decompress(
+            stream, grok_tpu.DecompressParams(backend="device")).to_array()
+        assert np.array_equal(out, want)
+        assert counts["ht_decode_flat"] == counts["decode_device"] > 0
 
 
 def test_lossy_ht_on_device_route(rng):
