@@ -93,11 +93,14 @@ class LazyPasses:
 # coder; "e0_host" counts device-coded HT blocks whose distortion e0 was
 # summed on the host (sum of squares above 2^53, see _e0);
 # "ht_encode_flat" and "ht_decode_flat" count the HT blocks of
-# "encode_device" and "decode_device" that came in a flat tile batch
+# "encode_device" and "decode_device" that came in a flat tile batch;
+# "mq_encode_passes" and "mq_decode_passes" sum the coding passes of the
+# "mq_encode_device" and "mq_decode_device" blocks (their chain lengths)
 DEVICE_CODEBLOCKS: dict[str, int] = dict.fromkeys(
     ("encode_device", "encode_host", "decode_device", "decode_host",
      "mq_encode_device", "mq_encode_host", "mq_decode_device",
-     "mq_decode_host", "e0_host", "ht_encode_flat", "ht_decode_flat"), 0)
+     "mq_decode_host", "e0_host", "ht_encode_flat", "ht_decode_flat",
+     "mq_encode_passes", "mq_decode_passes"), 0)
 
 
 @dataclass
@@ -383,6 +386,7 @@ def _encode_mq_device(jobs: list[EncodeJob],
     for j in jobs:
         (dev if mq_device_eligible(j.style, j.numbps_bound, j.need_dist)
          else rest).append(j)
+    passes = 0
     if dev:
         res = dmq.encode_cblks_mq(
             _on_device([j.coeffs for j in dev], device),
@@ -393,11 +397,13 @@ def _encode_mq_device(jobs: list[EncodeJob],
         for k, j in enumerate(dev):
             nb = int(res.numbps[k])
             n = res.num_passes(k)
+            passes += n
             j.data, j.numbps = res.data[k], nb
             j.passes = LazyPasses(res.rates[k, :n], res.dists[k, :n],
                                   res.terms[k, :n], nb)
             j.e0_out = float(res.e0[k]) if j.need_dist else None
     DEVICE_CODEBLOCKS["mq_encode_device"] += len(dev)
+    DEVICE_CODEBLOCKS["mq_encode_passes"] += passes
     return rest
 
 
@@ -427,6 +433,7 @@ def _decode_mq_device(jobs: list[DecodeJob],
                      [(j.data, j.seg_lengths, j.num_passes, j.numbps, j.h,
                        j.w, j.orient, j.style) for j in dev])
     DEVICE_CODEBLOCKS["mq_decode_device"] += len(dev)
+    DEVICE_CODEBLOCKS["mq_decode_passes"] += sum(j.num_passes for j in dev)
     return rest
 
 

@@ -138,6 +138,7 @@ def _round(kernels, blocks, orients, lazy, dist, capped=True):
     for o, w in zip(_decode(kernels, items),
                     mq_decode.decode_cblks_mq_plain(items, CPU)):
         assert torch.equal(o, w)
+    return enc
 
 
 @pytest.mark.parametrize("style", cases.STYLES)
@@ -181,3 +182,48 @@ def test_host_decode_corrupt_streams(kernels):
     for o, w in zip(_decode(kernels, items),
                     mq_decode.decode_cblks_mq_plain(items, CPU)):
         assert torch.equal(o, w)
+
+
+@pytest.mark.parametrize("style", cases.STYLES)
+def test_host_kernels_full_depth_lossless(kernels, style):
+    """Lossless blocks coded to the last of 19 planes and decoded with
+    every pass, in one launch with photo-depth blocks."""
+    rng = np.random.default_rng(26)
+    bl = cases.full_depth_blocks(rng)
+    enc = _round(kernels, bl, rng.integers(0, 4, len(bl)),
+                 style == CblkStyle.LAZY, 0, capped=False)
+    assert enc.numbps.tolist()[:2] == [19, 19]
+    assert enc.num_passes(0) == 3 * 19 - 2
+    assert max(enc.numbps[3:]) <= 10
+
+
+def test_host_encode_slot_overflow_raises(kernels):
+    """A block whose codeword outgrows its slot writes nothing past it and
+    nothing into the packed pool, reports STATUS_SLOT, and the wrapper
+    raises; the other blocks of the launch code as the twin codes them."""
+    rng = np.random.default_rng(27)
+    deep, _, noise, photo, _ = cases.full_depth_blocks(rng)
+    blocks = [torch.from_numpy(b) for b in (photo, noise, deep)]
+    n = len(blocks)
+    # the deep block's slot sized for a block of one plane: 2,389 bytes
+    args = list(mq_encode.encode_args(blocks, [1] * n, [0] * n, [0] * n,
+                                      [26, 26, 1], CPU))
+    total = len(args[1])
+    args[1] = torch.full((total + 4096,), 0xA5, dtype=torch.uint8)
+    args[2] = torch.full((total + 4096,), 0xA5, dtype=torch.uint8)
+    args[3].zero_()
+    kernels["mq_encode.cu"](*(t.data_ptr() for t in (
+        args[0], mq_encode.device_tables(CPU), *args[1:8])), n)
+    meta = args[4].numpy()
+    assert meta[:, 3].tolist() == [0, 0, mq_encode.STATUS_SLOT]
+    assert int(args[1][total:].ne(0xA5).sum()) == 0
+    used = int(args[3][0])
+    assert used == int(meta[:2, 1].sum())
+    assert int(args[2][used:].ne(0xA5).sum()) == 0
+    twin = mq_encode.encode_cblks_mq_plain(blocks[:2], [1, 1], 0)
+    packed = args[2].numpy()
+    for k in range(2):
+        off, ln = meta[k, :2].tolist()
+        assert packed[off:off + ln].tobytes() == twin.data[k]
+    with pytest.raises(RuntimeError, match="outgrew its slot"):
+        mq_encode.finish_encode(args)

@@ -61,6 +61,29 @@ def extreme_blocks(rng, mx=3000):
     return out
 
 
+def full_depth_blocks(rng):
+    """Lossless blocks to the last plane beside photo-depth ones, for one
+    launch: a dense 32 x 32 and a 64 x 16 band-edge block with magnitudes
+    up to 2^18 (numbps 19, a 16-bit image's deepest band), a 32 x 64 of a
+    16-bit mammogram's quantum noise (numbps about 9), and two 20:1 photo
+    blocks (numbps up to 10).  The deep blocks are kept small: the twins
+    take a step a decision, and a dense 64 x 64 to 19 planes is a minute
+    of them."""
+    deep = [rng.integers(-(1 << 18), (1 << 18) + 1, size=s).astype(np.int32)
+            for s in ((32, 32), (64, 16))]
+    deep[1][rng.random(deep[1].shape) < 0.2] = 0
+    for b in deep:
+        b.flat[int(rng.integers(0, b.size))] = -(1 << 18)
+    noise = np.round(rng.normal(0, 60, (32, 64))).astype(np.int32)
+    photo = []
+    for h, w in ((64, 64), (16, 64)):
+        b = rng.integers(-(1 << 9), (1 << 9) + 1, size=(h, w)).astype(
+            np.int32)
+        b[rng.random((h, w)) < 0.6] = 0
+        photo.append(b)
+    return deep + [noise] + photo
+
+
 def segments(passes, npd):
     """The codeword segment lengths of the first npd passes, as Tier-2
     hands them over (split at terminations and after the last pass)."""
