@@ -1351,7 +1351,9 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
         f"{blocks['mq_decode_device']} on the card, "
         f"{blocks['mq_decode_host']} on the native coder; e0 summed on the "
         f"host for {blocks['e0_host']}; HT in flat tile batches: encode "
-        f"{blocks['ht_encode_flat']}, decode {blocks['ht_decode_flat']}")
+        f"{blocks['ht_encode_flat']}, decode {blocks['ht_decode_flat']}; MQ "
+        f"in flat tile batches: encode {blocks['mq_encode_flat']}, decode "
+        f"{blocks['mq_decode_flat']}")
 
     def encode(backend):
         def run():

@@ -12,7 +12,12 @@ The host computes what depends only on the packet headers, as the
 reference does: each codeword segment's byte range and, through
 t1/coder.py `segment_layout`, the segment and bypass flag of every pass
 (`layout`).  It joins the blocks' bytes and uploads them with those tables
-in one copy.  On a CUDA device one launch of csrc/mq_decode.cu
+in one copy.  A tile's blocks can also go as flat arrays: `flat_layout`
+regroups the chunk records Tier-2 read (a block's records lie one after
+another in the tile's stream) into the same descriptor and segment rows
+with numpy, the pass maps point into one shared table (`pass_maps`), and
+`flat_args` uploads the rows and the tile's stream, which the blocks'
+offsets point into.  On a CUDA device one launch of csrc/mq_decode.cu
 (`grk_mq_decode`, one warp a codeblock with its flag words, context states
 and plane map in shared memory, running the bit-plane decoder in step with
 only lane 0 storing, its lanes split over applying each plane to the
@@ -41,7 +46,8 @@ column); its CPU time is what the port's codec tests pay.
 
 from __future__ import annotations
 
-from collections import defaultdict
+import functools
+import warnings
 
 import numpy as np
 import torch
@@ -81,12 +87,18 @@ def _style_ok(style) -> bool:
 def padded_lengths(items) -> np.ndarray:
     """The reference's padded batch length Lb of each item: the next power
     of two of the longest (at least 1 byte) block of its shape."""
-    longest: dict = defaultdict(int)
-    for it in items:
-        key = (it[4], it[5])
-        longest[key] = max(longest[key], max(1, len(it[0])))
-    return np.array([1 << (longest[(it[4], it[5])] - 1).bit_length()
-                     for it in items], np.int64)
+    cols = np.array([(it[4], it[5], len(it[0])) for it in items],
+                    np.int64).reshape(-1, 3)
+    return _padded(*cols.T)
+
+
+def _padded(h, w, data_len) -> np.ndarray:
+    """padded_lengths over arrays of the blocks' h, w and byte counts."""
+    _, grp = np.unique(h * 8192 + w, return_inverse=True)
+    longest = np.zeros(len(data_len) and grp.max() + 1, np.int64)
+    np.maximum.at(longest, grp, np.maximum(data_len, 1))
+    _, e = np.frexp(longest - 1)
+    return (np.int64(1) << e.astype(np.int64))[grp]
 
 
 def layout(items):
@@ -133,6 +145,82 @@ def layout(items):
                            np.uint8)
     return (desc, joined, np.concatenate(segs).astype(np.int32),
             np.concatenate(pmaps + [np.zeros(1, np.uint8)]))
+
+
+@functools.cache
+def pass_maps():
+    """The pass maps of every (lazy, numbps) the device takes, in one
+    table: (table uint8, offset (2, 27) int64 of each map in it, segment
+    rows (2, 27) int64, at least 1), all read-only.  A map depends only on
+    the style and numbps, so blocks point into this one."""
+    off = np.zeros((2, MAX_NUMBPS_DEVICE + 1), np.int64)
+    nseg = np.ones_like(off)
+    parts, at = [], 0
+    for lazy, style in enumerate((CblkStyle.NONE, CblkStyle.LAZY)):
+        for nb in range(1, MAX_NUMBPS_DEVICE + 1):
+            lay = segment_layout(style, nb)
+            pm = np.zeros(3 * nb - 2, np.uint8)
+            for si, (plist, is_raw) in enumerate(lay):
+                pm[plist] = si | (RAW_FLAG if is_raw else 0)
+            off[lazy, nb], nseg[lazy, nb] = at, max(len(lay), 1)
+            parts.append(pm)
+            at += len(pm)
+    out = (np.concatenate(parts), off, nseg)
+    for a in out:
+        a.setflags(write=False)
+    return out
+
+
+def flat_layout(nb, lazy, h, w, rblk, rpass, rlen):
+    """layout's descriptor columns 2 to 12 and segment rows for blocks
+    whose bytes each lie in one range of a tile's stream, from Tier-2's
+    chunk records, as t2/packets.py collect_seg_lengths and layout make
+    them from the same records: per block numbps (0 to 26), lazy flag, h
+    and w; per record (grouped by block, each block's in arrival order,
+    every block with one at least) its block, passes and length.  A
+    record's bytes count to the segment of the block's first pass in it
+    (segment 0 past the last pass); the segments given lengths, in order,
+    are the block's segment rows, as many as its layout has.  Returns
+    (desc (n, 13) int64 with the pointer, stride and data_off columns left
+    0, segment rows (S, 2) int32, the shared pass map table)."""
+    table, poff, pnseg = pass_maps()
+    n = len(nb)
+    rblk = np.asarray(rblk, np.int64)
+    rlen = np.asarray(rlen, np.int64)
+    npb = np.where(nb > 0, 3 * nb - 2, 0)
+    pm_off = poff[lazy, nb]
+    nseg = pnseg[lazy, nb]
+    first_rec = np.searchsorted(rblk, np.arange(n))
+    done = np.cumsum(rpass) - rpass
+    p = done - done[first_rec][rblk]           # the record's first pass
+    last = npb[rblk] - 1
+    seg = np.where(p <= last, table[pm_off[rblk]
+                                    + np.clip(p, 0, np.maximum(last, 0))]
+                   & 0x7F, 0).astype(np.int64)
+    # the segments given lengths: sorted by block, then segment
+    key, inv = np.unique(rblk * 128 + seg, return_inverse=True)
+    sums = np.bincount(inv, weights=rlen).astype(np.int64)
+    kblk = key >> 7
+    kfirst = np.searchsorted(kblk, np.arange(n))[kblk]
+    rank = np.arange(len(key)) - kfirst
+    keep = rank < nseg[kblk]
+    sums = np.where(keep, sums, 0)
+    starts = np.cumsum(sums) - sums
+    starts -= starts[kfirst]
+    seg_off = np.cumsum(nseg) - nseg
+    segs = np.zeros((int(nseg.sum()), 2), np.int32)
+    rows = seg_off[kblk[keep]] + rank[keep]
+    segs[rows, 0] = starts[keep]
+    segs[rows, 1] = starts[keep] + sums[keep]
+    data_len = np.bincount(rblk, weights=rlen, minlength=n).astype(np.int64)
+    passes = np.bincount(rblk, weights=rpass, minlength=n).astype(np.int64)
+    desc = np.zeros((n, len(DESC)), np.int64)
+    desc[:, 2], desc[:, 3], desc[:, 5] = h, w, nb
+    desc[:, 6] = np.clip(passes, 0, npb)
+    desc[:, 8] = data_len
+    desc[:, 9] = _padded(h, w, data_len)
+    desc[:, 10], desc[:, 11], desc[:, 12] = seg_off, nseg, pm_off
+    return desc, segs, table
 
 
 def _dests(items, device, outs):
@@ -183,7 +271,29 @@ def decode_args(items, device: torch.device, outs):
     o = np.cumsum([0] + sizes)
     return (blob[o[0]:o[1]].view(torch.int64).view(-1, len(DESC)),
             blob[o[1]:o[2]].view(torch.int32), blob[o[2]:o[3]],
-            blob[o[3]:o[4]], launch_smem(desc[:, 2:4].tolist()))
+            blob[o[3]:o[4]], launch_smem(desc[:, 2:4]))
+
+
+def flat_args(data, desc: np.ndarray, segs: np.ndarray, pmap: np.ndarray,
+              device: torch.device):
+    """decode_args for flat_layout's rows, whose data_off column the
+    caller set into `data` (bytes-like: the tile's stream) and whose
+    pointer and stride columns it filled: the rows go up in one copy and
+    the stream in another."""
+    parts = [desc.view(np.uint8).reshape(-1), segs.view(np.uint8).reshape(
+        -1), pmap]
+    o = np.cumsum([0] + [len(p) for p in parts])
+    blob = torch.from_numpy(np.concatenate(parts)).to(device)
+    src = np.frombuffer(data, np.uint8)
+    stream = torch.empty(max(len(src), 1), dtype=torch.uint8, device=device)
+    if len(src):
+        with warnings.catch_warnings():
+            # read-only bytes: the tensor is only the copy's source
+            warnings.simplefilter("ignore", UserWarning)
+            stream[:len(src)].copy_(torch.from_numpy(src))
+    return (blob[o[0]:o[1]].view(torch.int64).view(-1, len(DESC)),
+            blob[o[1]:o[2]].view(torch.int32), blob[o[2]:o[3]], stream,
+            launch_smem(desc[:, 2:4]))
 
 
 def launch_decode(args, device: torch.device) -> None:
@@ -465,10 +575,10 @@ class _Twin:
     by W + 2 columns (a border of insignificant samples), flattened, with
     a dummy slot at the end that masked writes go to."""
 
-    def __init__(self, items, device):
+    def __init__(self, lay, device):
         self.dev = dev = device
-        desc, joined, segs, pmap = layout(items)
-        self.n = n = len(items)
+        desc, joined, segs, pmap = lay
+        self.n = n = len(desc)
         self.h = torch.tensor(desc[:, 2], device=dev)
         self.w = torch.tensor(desc[:, 3], device=dev)
         self.orient = torch.tensor(desc[:, 4], device=dev)
@@ -718,13 +828,18 @@ def decode_cblks_mq_plain(items, device="cpu", outs=None):
     """Plain PyTorch twin of decode_cblks_mq, run on `device`."""
     device = torch.device(device)
     outs = _dests(items, device, outs)
-    if not items:
-        return outs
-    tw = _Twin(items, device)
+    if items:
+        decode_flat_plain(layout(items), device, outs)
+    return outs
+
+
+def decode_flat_plain(lay, device, outs) -> None:
+    """The twin on a layout (desc, bytes, segment rows, pass maps), as
+    layout or flat_layout make it (the bytes a uint8 array, which desc's
+    data_off column points into), writing block k into outs[k]."""
+    tw = _Twin(lay, torch.device(device))
     tw.run()
     vals = tw.result().to(torch.int32)
     wmax = tw.Wp - 2
-    for k, (o, it) in enumerate(zip(outs, items)):
-        h, w = it[4], it[5]
+    for k, (o, (h, w)) in enumerate(zip(outs, lay[0][:, 2:4].tolist())):
         o.copy_(vals[k].reshape(4 * tw.S, wmax)[:h, :w])
-    return outs

@@ -19,7 +19,11 @@ one warp a codeblock with its flag words, context states and plane map in
 shared memory, running the bit-plane coder and the MQ and raw writers in
 step with only lane 0 storing, the warp's lanes split over the load, the
 plane bits and the distortions, segments finished in the kernel; dynamic shared memory sized by the launch's
-largest block, `mq_tables.launch_smem`), then two copies back.  On CPU
+largest block, `mq_tables.launch_smem`), then two copies back.  A tile's
+blocks can also go as flat arrays: `desc_args` takes the descriptor rows
+the caller built with numpy, and `finish_encode_flat` hands back the pool,
+the per-block results and the rates as arrays, with no per-block Python
+object (no distortions on that route).  On CPU
 tensors it is the plain PyTorch twin `encode_cblks_mq_plain`, written
 after the reference's formulation so its stages can be held to the
 reference's:
@@ -190,12 +194,19 @@ def encode_args(blocks, orients, lazy, need_dist, bounds,
     desc[:, 4] = orients
     desc[:, 5] = lazy
     desc[:, 6] = need_dist
-    caps = np.array([out_capacity(h, w, nb) for (h, w), nb in
-                     zip(desc[:, 2:4].tolist(), bounds)], np.int64)
-    desc[:, 7] = np.cumsum(caps) - caps
-    desc[:, 8] = caps
-    total = int(caps.sum())
-    return (torch.from_numpy(desc).to(device),
+    desc[:, 8] = out_capacity(desc[:, 2], desc[:, 3], np.asarray(bounds))
+    desc[:, 7] = np.cumsum(desc[:, 8]) - desc[:, 8]
+    return desc_args(desc, device)
+
+
+def desc_args(desc: np.ndarray, device: torch.device):
+    """encode_args from descriptor rows built by the caller: (n, 9) int64,
+    DESC's columns, each block's slot inside the sum of the slot sizes.
+    One copy takes the rows to the device; the blocks must outlive the
+    launch."""
+    n = len(desc)
+    total = int(desc[:, 8].sum())
+    return (torch.from_numpy(np.ascontiguousarray(desc)).to(device),
             torch.empty(total, dtype=torch.uint8, device=device),
             torch.empty(total, dtype=torch.uint8, device=device),
             torch.empty(1, dtype=torch.int64, device=device),
@@ -203,7 +214,7 @@ def encode_args(blocks, orients, lazy, need_dist, bounds,
             torch.empty((n, MAX_PASSES), dtype=torch.int32, device=device),
             torch.empty((n, MAX_PASSES), dtype=torch.uint8, device=device),
             torch.empty((n, MAX_PASSES), dtype=torch.int64, device=device),
-            launch_smem(desc[:, 2:4].tolist()))
+            launch_smem(desc[:, 2:4]))
 
 
 _DEVICE_TABLES: dict = {}
@@ -247,14 +258,38 @@ def finish_encode(args) -> MQEncoded:
     t = small[k:k + n * MAX_PASSES].reshape(n, MAX_PASSES).astype(np.uint8)
     k += n * MAX_PASSES
     d = small[k:].reshape(n, MAX_PASSES).astype(np.float64)
-    if (m[:, 3] == STATUS_RANGE).any():
-        raise ValueError("magnitudes exceed the device MQ range")
-    if (m[:, 3] == STATUS_SLOT).any():
-        raise RuntimeError("MQ encode: a codeword outgrew its slot")
+    _raise_on(m[:, 3])
     pool = packed[:int(small[0])].cpu().numpy()
     data = [pool[o:o + ln].tobytes() for o, ln in m[:, :2].tolist()]
     return MQEncoded(data, m[:, 2].copy(), r, t, d,
                      m[:, 4].astype(np.float64))
+
+
+def finish_encode_flat(args, extra: int = 0):
+    """finish_encode without the per-block bytes, for a batch that codes
+    no distortions: (the pool's used bytes, followed by `extra` bytes left
+    for the caller, as one uint8 array; meta (n, 6) int64, META's columns;
+    rates (n, MAX_PASSES) int32), after the checks.  The results and the
+    used count come back in one copy, the pool in another."""
+    _, _, packed, used, meta, rates = args[:6]
+    n = len(meta)
+    small = torch.cat([used, meta.reshape(-1),
+                       rates.view(torch.int64).reshape(-1)]).cpu().numpy()
+    m = small[1:1 + n * len(META)].reshape(n, len(META))
+    r = small[1 + n * len(META):].view(np.int32).reshape(n, MAX_PASSES)
+    _raise_on(m[:, 3])
+    used = int(small[0])
+    data = np.empty(used + extra, np.uint8)
+    if used:
+        torch.from_numpy(data[:used]).copy_(packed[:used])
+    return data, m, r
+
+
+def _raise_on(status) -> None:
+    if (status == STATUS_RANGE).any():
+        raise ValueError("magnitudes exceed the device MQ range")
+    if (status == STATUS_SLOT).any():
+        raise RuntimeError("MQ encode: a codeword outgrew its slot")
 
 
 # ------------------------------------------------------------ plain twin
@@ -735,6 +770,25 @@ def _assemble(nb, lazy, out, seg_end, tot, sec, raw_bits, raw_counts,
     return bytes(data), rates, np.asarray(tflags, np.uint8)
 
 
+def encode_plain_flat(blocks, orients, lazy, extra: int = 0):
+    """The twin's results, no distortions, as finish_encode_flat gives the
+    kernel's: every block's codeword in one uint8 array (with `extra`
+    bytes to spare after them), meta (n, 6) int64 (offset, length, numbps;
+    status 0) and rates (n, MAX_PASSES) int32."""
+    n = len(blocks)
+    res = _encode_plain(list(blocks), _per_block(orients, n, "orient"),
+                        _per_block(lazy, n, "lazy flag"), [0] * n)
+    lens = np.fromiter(map(len, res.data), np.int64, n)
+    meta = np.zeros((n, len(META)), np.int64)
+    meta[:, 0] = np.cumsum(lens) - lens
+    meta[:, 1] = lens
+    meta[:, 2] = res.numbps
+    used = int(lens.sum())
+    data = np.empty(used + extra, np.uint8)
+    data[:used] = np.frombuffer(b"".join(res.data), np.uint8)
+    return data, meta, res.rates.astype(np.int32)
+
+
 def _encode_plain(blocks, orients, lazy, need_dist) -> MQEncoded:
     """The twin: decision streams per shape, _CHUNK blocks at a time; one
     automaton over every block; distortions; splicing per block."""
@@ -786,8 +840,8 @@ def _encode_plain(blocks, orients, lazy, need_dist) -> MQEncoded:
     for k, p in enumerate(per):
         ctx[k, :p[2]] = p[0][:p[2]]
         bit[k, :p[2]] = p[1][:p[2]]
-    cap = max(out_capacity(int(b.shape[0]), int(b.shape[1]), maxp)
-              for b in blocks) + 2 * MAX_NUMBPS_DEVICE
+    cap = int(max(out_capacity(int(b.shape[0]), int(b.shape[1]), maxp)
+                  for b in blocks)) + 2 * MAX_NUMBPS_DEVICE
     out, seg_end, tot = (t.cpu().numpy() for t in mq_automaton(ctx, bit,
                                                                  cap))
     data = []

@@ -103,10 +103,11 @@ INIT_CTX[CTX_RL] = 3 * 2
 INIT_CTX[CTX_UNI] = 46 * 2
 
 
-def out_capacity(h: int, w: int, numbps: int) -> int:
+def out_capacity(h, w, numbps):
     """Bytes a codeblock's codeword may take: the native coder's bound
-    (native/t1.cc), h * w * numbps / 3 + 1024."""
-    return h * w * max(numbps, 1) // 3 + 1024
+    (native/t1.cc), h * w * numbps / 3 + 1024 (ints, or numpy arrays of
+    them)."""
+    return h * w * np.maximum(numbps, 1) // 3 + 1024
 
 
 # csrc/mq_common.cuh kSmemFixed: the tables (1,656 B, to 16), the 19
@@ -127,5 +128,7 @@ def smem_bytes(h: int, w: int) -> int:
 
 
 def launch_smem(shapes) -> int:
-    """A launch's dynamic shared memory: its largest block's."""
-    return max(smem_bytes(int(h), int(w)) for h, w in shapes)
+    """A launch's dynamic shared memory: its largest block's (shapes: (h,
+    w) pairs, or an (n, 2) array)."""
+    s = np.asarray(shapes, np.int64).reshape(-1, 2)
+    return int(smem_bytes(s[:, 0], s[:, 1]).max())

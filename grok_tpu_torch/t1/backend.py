@@ -20,9 +20,10 @@ dispatch between implementations:
 
 Batch API: lists of codeblock jobs so the native backend can parallelize
 freely (SURVEY.md §2.3 "codeblock-batch axis").  Under backend="device" a
-tile whose codeblocks are all HT may come instead as one flat batch
-(HTEncodeTile, HTDecodeTile): per-block numpy arrays over the tile's band
-tensors, and job objects only for the few blocks the native coder takes.
+tile whose codeblocks are all HT, or all MQ, may come instead as one flat
+batch (HTEncodeTile, HTDecodeTile, MQEncodeTile, MQDecodeTile): per-block
+numpy arrays over the tile's band tensors, and job objects only for the
+few blocks the native coder takes.
 """
 
 from __future__ import annotations
@@ -95,12 +96,15 @@ class LazyPasses:
 # "ht_encode_flat" and "ht_decode_flat" count the HT blocks of
 # "encode_device" and "decode_device" that came in a flat tile batch;
 # "mq_encode_passes" and "mq_decode_passes" sum the coding passes of the
-# "mq_encode_device" and "mq_decode_device" blocks (their chain lengths)
+# "mq_encode_device" and "mq_decode_device" blocks (their chain lengths);
+# "mq_encode_flat" and "mq_decode_flat" count the MQ blocks of
+# "mq_encode_device" and "mq_decode_device" that came in a flat tile batch
 DEVICE_CODEBLOCKS: dict[str, int] = dict.fromkeys(
     ("encode_device", "encode_host", "decode_device", "decode_host",
      "mq_encode_device", "mq_encode_host", "mq_decode_device",
      "mq_decode_host", "e0_host", "ht_encode_flat", "ht_decode_flat",
-     "mq_encode_passes", "mq_decode_passes"), 0)
+     "mq_encode_passes", "mq_decode_passes", "mq_encode_flat",
+     "mq_decode_flat"), 0)
 
 
 @dataclass
@@ -166,15 +170,15 @@ class DecodeJob:
 
 
 @dataclass
-class HTEncodeTile:
-    """A tile's HT codeblocks for the device encoder as flat arrays.
-    `bands`: int32 band tensors on the device, by band id; `blk` (n, 5)
-    int64: a device block's band id, row and column in its band, h and w;
-    `desc`: grk_ht_encode's rows for them (address, row stride, h, w);
-    `host`: jobs for the blocks the native coder takes.  encode_batch sets
-    `data`, every segment in one uint8 array (the device blocks' first,
-    then the host jobs'), and `offs`, `lens`, `numbps`, one entry a block
-    in that order."""
+class _EncodeTile:
+    """A tile's codeblocks of one coder for the device encoder as flat
+    arrays.  `bands`: int32 band tensors on the device, by band id; `blk`
+    (n, 5) int64: a device block's band id, row and column in its band, h
+    and w; `desc`: the encoder's descriptor rows for them; `host`: jobs for
+    the blocks the native coder takes.  encode_batch sets `data`, every
+    codeword or segment in one uint8 array (the device blocks' first, then
+    the host jobs'), and `offs`, `lens`, `numbps`, one entry a block in
+    that order."""
     bands: list
     blk: np.ndarray
     desc: np.ndarray
@@ -186,16 +190,49 @@ class HTEncodeTile:
 
 
 @dataclass
+class HTEncodeTile(_EncodeTile):
+    """HT blocks: `desc` grk_ht_encode's rows (address, row stride, h,
+    w)."""
+
+
+@dataclass
+class MQEncodeTile(_EncodeTile):
+    """MQ blocks with no distortions tracked: `desc` grk_mq_encode's rows
+    (ops/mq_encode.py DESC: address, row stride, h, w, orient, lazy flag,
+    0, slot offset and size).  encode_batch also sets `rates` (n, stride)
+    int32, each block's cumulative pass rates, in the same order."""
+    rates: np.ndarray | None = None
+
+
+@dataclass
 class HTDecodeTile:
     """A tile's HT codeblocks for the device decoder as flat arrays.
     `data`: the bytes the segments lie in (the tile's stream); `desc` (n, 8)
     int64: the first six DESC columns of ops/ht_decode.py for the device
     blocks (output address and row stride in a device band, h, w, segment
-    offset in `data` and length); `bands`, `blk` as HTEncodeTile's for
+    offset in `data` and length); `bands`, `blk` as _EncodeTile's for
     those outputs; `host`: jobs for the blocks the native coder takes,
     decoded into host band arrays."""
     data: object
     desc: np.ndarray
+    bands: list
+    blk: np.ndarray
+    host: list
+
+
+@dataclass
+class MQDecodeTile:
+    """A tile's MQ codeblocks for the device decoder as flat arrays.
+    `data`: the tile's stream; `desc` (n, 13) int64: ops/mq_decode.py DESC
+    rows for the device blocks, their output addresses in the device bands
+    and their bytes' offsets in `data` filled; `segs`, `pmap`: the segment
+    rows and the pass map table desc points into (flat_layout); `bands`,
+    `blk` as _EncodeTile's for the outputs; `host`: jobs for the blocks
+    the native coder takes, decoded into host band arrays."""
+    data: object
+    desc: np.ndarray
+    segs: np.ndarray
+    pmap: np.ndarray
     bands: list
     blk: np.ndarray
     host: list
@@ -499,15 +536,7 @@ def _encode_ht_tile(t: HTEncodeTile, backend: str, num_threads: int,
         data, meta = dht.encode_plain_flat(_views(t.bands, t.blk), extra)
     else:
         data, meta = np.empty(extra, np.uint8), np.zeros((0, 5), np.int64)
-    used = len(data) - extra
-    offs_h = used + np.cumsum(lens_h) - lens_h
-    for j, o in zip(t.host, offs_h.tolist()):
-        data[o:o + len(j.data)] = np.frombuffer(j.data, np.uint8)
-    t.data = data
-    t.offs = np.concatenate([meta[:, 0], offs_h])
-    t.lens = np.concatenate([meta[:, 1], lens_h])
-    t.numbps = np.concatenate([meta[:, 2], np.fromiter(
-        (j.numbps for j in t.host), np.int64, len(t.host))])
+    _join_host(t, data, meta, extra, lens_h)
     DEVICE_CODEBLOCKS["encode_device"] += n
     DEVICE_CODEBLOCKS["ht_encode_flat"] += n
     DEVICE_CODEBLOCKS["encode_host"] += len(t.host)
@@ -532,6 +561,86 @@ def _decode_ht_tile(t: HTDecodeTile, backend: str, num_threads: int,
     DEVICE_CODEBLOCKS["ht_decode_flat"] += n
     DEVICE_CODEBLOCKS["decode_host"] += len(t.host)
     _decode_ht_host(t.host, backend, num_threads)
+
+
+def _join_host(t: _EncodeTile, data: np.ndarray, meta: np.ndarray,
+               extra: int, lens_h: np.ndarray) -> None:
+    """A flat encode's results: the host jobs' bytes into the `extra`
+    bytes after the device blocks', and `data`, `offs`, `lens`, `numbps`
+    set on the batch, the device blocks first."""
+    used = len(data) - extra
+    offs_h = used + np.cumsum(lens_h) - lens_h
+    for j, o in zip(t.host, offs_h.tolist()):
+        data[o:o + len(j.data)] = np.frombuffer(j.data, np.uint8)
+    t.data = data
+    t.offs = np.concatenate([meta[:, 0], offs_h])
+    t.lens = np.concatenate([meta[:, 1], lens_h])
+    t.numbps = np.concatenate([meta[:, 2], np.fromiter(
+        (j.numbps for j in t.host), np.int64, len(t.host))])
+
+
+def _encode_mq_tile(t: MQEncodeTile, backend: str, num_threads: int,
+                    device: torch.device) -> None:
+    """A flat MQ tile batch: one launch of the MQ encoder (the twin on
+    the CPU) for the device blocks, the native coder for the host jobs
+    while the card works, then one result array for both and the pass
+    rates of every block."""
+    from ..ops import mq_encode as dmq
+
+    n = len(t.blk)
+    args = None
+    if n and _kernel_route(device):
+        args = dmq.desc_args(t.desc, device)
+        dmq.launch_encode(args, device)
+    if t.host:
+        _BACKENDS[resolve(backend)][0](t.host, num_threads)
+    rates_h = [j.passes.rates for j in t.host]  # the native coder's
+    lens_h = np.fromiter((len(j.data) for j in t.host), np.int64,
+                         len(t.host))
+    extra = int(lens_h.sum())
+    if args is not None:
+        data, meta, rates = dmq.finish_encode_flat(args, extra)
+    elif n:
+        data, meta, rates = dmq.encode_plain_flat(
+            _views(t.bands, t.blk), t.desc[:, 4], t.desc[:, 5], extra)
+    else:
+        data, meta = np.empty(extra, np.uint8), np.zeros((0, 6), np.int64)
+        rates = np.zeros((0, dmq.MAX_PASSES), np.int32)
+    _join_host(t, data, meta, extra, lens_h)
+    stride = max([rates.shape[1]] + [len(r) for r in rates_h])
+    t.rates = np.zeros((n + len(t.host), stride), np.int32)
+    t.rates[:n, :rates.shape[1]] = rates
+    for k, r in enumerate(rates_h):
+        t.rates[n + k, :len(r)] = r
+    nb = meta[:, 2]
+    DEVICE_CODEBLOCKS["mq_encode_device"] += n
+    DEVICE_CODEBLOCKS["mq_encode_flat"] += n
+    DEVICE_CODEBLOCKS["mq_encode_passes"] += int(
+        np.where(nb > 0, 3 * nb - 2, 0).sum())
+    DEVICE_CODEBLOCKS["mq_encode_host"] += len(t.host)
+
+
+def _decode_mq_tile(t: MQDecodeTile, backend: str, num_threads: int,
+                    device: torch.device) -> None:
+    """A flat MQ tile batch: one launch of the MQ decoder (the twin on
+    the CPU) for the device blocks, writing their device bands, and the
+    native coder for the host jobs."""
+    from ..ops import mq_decode as dmqd
+
+    n = len(t.desc)
+    if n and _kernel_route(device):
+        dmqd.launch_decode(dmqd.flat_args(t.data, t.desc, t.segs, t.pmap,
+                                          device), device)
+    elif n:
+        dmqd.decode_flat_plain(
+            (t.desc, np.frombuffer(t.data, np.uint8), t.segs, t.pmap),
+            device, _views(t.bands, t.blk))
+    DEVICE_CODEBLOCKS["mq_decode_device"] += n
+    DEVICE_CODEBLOCKS["mq_decode_flat"] += n
+    DEVICE_CODEBLOCKS["mq_decode_passes"] += int(t.desc[:, 6].sum())
+    DEVICE_CODEBLOCKS["mq_decode_host"] += len(t.host)
+    if t.host:
+        _BACKENDS[resolve(backend)][1](t.host, num_threads)
 
 
 def _encode_ht_host(jobs: list[EncodeJob], backend: str,
@@ -559,16 +668,19 @@ def _decode_ht_host(jobs: list[DecodeJob], backend: str,
         _decode_ht(jobs)
 
 
-def encode_batch(jobs: list[EncodeJob] | HTEncodeTile,
+def encode_batch(jobs: list[EncodeJob] | HTEncodeTile | MQEncodeTile,
                  backend: str = "device", num_threads: int = 0,
                  device=None) -> None:
     """num_threads sizes the native thread pool (-H parity; 0 = all
     cores).  Output is byte-identical for any thread count — jobs are
     independent and land in per-job buffers (the reference's determinism
     invariant, SURVEY.md §4).  `device` is where backend="device" codes
-    its device-eligible blocks; an HTEncodeTile is coded there too."""
+    its device-eligible blocks; a flat tile batch is coded there too."""
     if isinstance(jobs, HTEncodeTile):
         _encode_ht_tile(jobs, backend, num_threads, _need_device(device))
+        return
+    if isinstance(jobs, MQEncodeTile):
+        _encode_mq_tile(jobs, backend, num_threads, _need_device(device))
         return
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]
@@ -592,11 +704,14 @@ def encode_batch(jobs: list[EncodeJob] | HTEncodeTile,
         _BACKENDS[name][0](mq_jobs, num_threads)
 
 
-def decode_batch(jobs: list[DecodeJob] | HTDecodeTile,
+def decode_batch(jobs: list[DecodeJob] | HTDecodeTile | MQDecodeTile,
                  backend: str = "device", num_threads: int = 0,
                  device=None) -> None:
     if isinstance(jobs, HTDecodeTile):
         _decode_ht_tile(jobs, backend, num_threads, _need_device(device))
+        return
+    if isinstance(jobs, MQDecodeTile):
+        _decode_mq_tile(jobs, backend, num_threads, _need_device(device))
         return
     ht_jobs = [j for j in jobs if j.ht]
     mq_jobs = [j for j in jobs if not j.ht]

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import logging
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ import torch
 from ..ops import pipeline
 from ..parallel import mesh as pmesh
 from ..params import (
+    CblkStyle,
     CodingParams,
     QuantStyle,
     StepSize,
@@ -474,9 +476,9 @@ class TileCompressor:
                                     device=self.device)
         with span("grk/encode/t1_ingest"):
             self._t1_need_dist = need_dist
-            if isinstance(jobs, t1_backend.HTEncodeTile):
+            if isinstance(jobs, t1_backend._EncodeTile):
                 self._t1_jobs = []
-                self._ingest_ht_tile(jobs, job_meta)
+                self._ingest_flat_tile(jobs, job_meta)
                 return
             self._t1_jobs = list(zip(jobs, job_meta))
             for job, meta in self._t1_jobs:
@@ -484,11 +486,11 @@ class TileCompressor:
 
     def _encode_jobs(self, need_dist: bool, quota_scale: float | None):
         """The tile's Tier-1 encode jobs and, for each, (compno, resno,
-        band, codeblock); or, where the tile's HT blocks code on the device
-        as flat arrays (_ht_tile_encode), one t1_backend.HTEncodeTile and
-        the statics it was built from."""
+        band, codeblock); or, where the tile's blocks code on the device as
+        flat arrays (_flat_tile_encode), one t1_backend.HTEncodeTile or
+        MQEncodeTile and the statics it was built from."""
         if not need_dist and quota_scale is None:
-            flat = self._ht_tile_encode()
+            flat = self._flat_tile_encode()
             if flat is not None:
                 return flat
         tile, tcp = self.tile, self.tcp
@@ -722,24 +724,27 @@ class TileCompressor:
         self.tile._t1enc_cache = (skey, statics)
         return statics
 
-    def _ht_tile_encode(self):
-        """The card route of a whole HT tile as flat arrays: (HTEncodeTile,
-        statics), or None where the tile keeps the per-codeblock route.  It
-        takes a tile whose components are all HT (not ht_mixed), with no
-        ROI and no -q target, whose bands are int32 tensors on the device;
-        the caller has checked that no distortion is tracked and no rate
-        quota set.  Per call the descriptor rows are one array expression
-        over the cached statics and the bands' addresses; the blocks the
-        native coder takes (odd sizes, numbps over the device's) come to
-        the host a band at a time, as jobs."""
-        tcp = self.tcp
+    def _flat_tile_encode(self):
+        """The card route of a whole tile as flat arrays: (HTEncodeTile or
+        MQEncodeTile, statics), or None where the tile keeps the
+        per-codeblock route.  It takes a tile whose components are all HT
+        (not ht_mixed) or all MQ, with no ROI and no -q target, whose bands
+        are int32 tensors on the device; the caller has checked that no
+        distortion is tracked and no rate quota set.  Per call the
+        descriptor rows are one array expression over the cached statics
+        and the bands' addresses; the blocks the native coder takes (odd HT
+        sizes, numbps bounds over the device's, MQ styles other than NONE
+        and LAZY) come to the host a band at a time, as jobs."""
+        tccps = self.tcp.tccps
+        ht = all(t.ht for t in tccps)
         if (self.backend != "device" or self.device is None
                 or getattr(self.cp, "ht_mixed", False)
                 or getattr(self.cp, "_has_quality_targets", False)
-                or not all(t.ht and not t.roi_shift for t in tcp.tccps)):
+                or any(t.roi_shift for t in tccps)
+                or (not ht and any(t.ht for t in tccps))):
             return None
         st = self._t1enc_statics()
-        fl = self._ht_tile_statics(st)
+        fl = self._flat_tile_statics(st)
         if fl is None:
             return None
         band_keys = st[5]
@@ -761,10 +766,14 @@ class TileCompressor:
             stride[i] = t.stride(0)
         blk = fl["blk"]
         b = blk[:, 0]
-        desc = np.empty((len(blk), 4), np.int64)
-        desc[:, 0] = base[b] + (blk[:, 1] * stride[b] + blk[:, 2]) * 4
+        addr = base[b] + (blk[:, 1] * stride[b] + blk[:, 2]) * 4
+        if ht:
+            desc = np.empty((len(blk), 4), np.int64)
+            desc[:, 2:] = blk[:, 3:]
+        else:
+            desc = fl["mq_desc"].copy()
+        desc[:, 0] = addr
         desc[:, 1] = stride[b]
-        desc[:, 2:] = blk[:, 3:]
         host = []
         if len(fl["host"]):
             on_host: dict = {}
@@ -773,48 +782,68 @@ class TileCompressor:
                 if a is None:
                     a = on_host[bi] = bands[bi].cpu().numpy()
                 host.append(t1_backend.EncodeJob(
-                    a[y:y + h, x:x + w], orient, style, ht=True,
+                    a[y:y + h, x:x + w], orient, CblkStyle(style), ht=ht,
                     need_dist=False, numbps_bound=mb))
-        return t1_backend.HTEncodeTile(bands, blk, desc, host), (st, fl)
+        kind = t1_backend.HTEncodeTile if ht else t1_backend.MQEncodeTile
+        return kind(bands, blk, desc, host), (st, fl)
 
-    def _ht_tile_statics(self, st):
-        """What _ht_tile_encode and _ingest_ht_tile read of the tile's
+    def _flat_tile_statics(self, st):
+        """What _flat_tile_encode and _ingest_flat_tile read of the tile's
         encode statics, cached on the tile beside them: the device blocks
-        (band id, row and column in the band, h, w), the host blocks (the
-        same with orient, style and mb), the bands either reads, the global
+        (band id, row and column in the band, h, w) and, for MQ, their
+        grk_mq_encode rows less the addresses; the host blocks (the same
+        with orient, style and mb), the bands either reads, the global
         indices of both in the batch's order."""
-        cached = getattr(self.tile, "_ht_tile_cache", None)
+        cached = getattr(self.tile, "_flat_tile_cache", None)
         if cached is not None and cached[0] is st:
             return cached[1]
-        ncb, hw, meta, _, coff, band_keys, bstride = st[:7]
+        ncb, hw, meta, flags, coff, band_keys, bstride = st[:7]
         if ncb == 0:
             return None
         from ..ops import ht_encode as dht
+        from ..ops import mq_encode as dmq
+        from ..ops.mq_tables import out_capacity
 
         hw = hw.reshape(-1, 2).astype(np.int64)
         m4 = meta.reshape(-1, 4).astype(np.int64)
         h, w, bid, mb = hw[:, 0], hw[:, 1], m4[:, 3], m4[:, 2]
+        orient, style = m4[:, 0], m4[:, 1]
         bw = bstride.astype(np.int64)[bid]
         coded = (h > 0) & (w > 0)
-        on_dev = coded & (h % 2 == 0) & (w % 2 == 0) & (
-            mb <= dht.MAX_NUMBPS_DEVICE)
+        isht = flags.astype(bool)
+        on_dev = coded & np.where(
+            isht, (h % 2 == 0) & (w % 2 == 0) & (mb <= dht.MAX_NUMBPS_DEVICE),
+            ((style == CblkStyle.NONE) | (style == CblkStyle.LAZY))
+            & (mb <= dmq.MAX_NUMBPS_DEVICE))
         dev_g = np.flatnonzero(on_dev)
         host_g = np.flatnonzero(coded & ~on_dev)
-        dht.check_shapes(h[dev_g], w[dev_g])
-        cols = np.stack([bid, coff // bw, coff % bw, h, w, m4[:, 0],
-                         m4[:, 1], mb], 1)
+        ht_g = dev_g[isht[dev_g]]
+        dht.check_shapes(h[ht_g], w[ht_g])
+        cols = np.stack([bid, coff // bw, coff % bw, h, w, orient, style,
+                         mb], 1)
         fl = {"blk": np.ascontiguousarray(cols[dev_g, :5]),
               "host": cols[host_g],
               "used": np.unique(bid[coded]).tolist(),
               "order": np.concatenate([dev_g, host_g])}
-        self.tile._ht_tile_cache = (st, fl)
+        if not isht[dev_g].any():
+            # grk_mq_encode's rows: orient, lazy flag, no distortions, and
+            # each block's slot sized by its band's M_b
+            desc = np.zeros((len(dev_g), len(dmq.DESC)), np.int64)
+            desc[:, 2:4] = hw[dev_g]
+            desc[:, 4] = orient[dev_g]
+            desc[:, 5] = style[dev_g] == CblkStyle.LAZY
+            desc[:, 8] = out_capacity(h[dev_g], w[dev_g], mb[dev_g])
+            desc[:, 7] = np.cumsum(desc[:, 8]) - desc[:, 8]
+            fl["mq_desc"] = desc
+        self.tile._flat_tile_cache = (st, fl)
         return fl
 
-    def _ingest_ht_tile(self, t, statics) -> None:
-        """A flat HT tile's results into the whole-tile encode arrays
+    def _ingest_flat_tile(self, t, statics) -> None:
+        """A flat tile's results into the whole-tile encode arrays
         (_EncSeq) that _assign_layers_flat and _write_packets_seq read, as
-        the native whole-tile encode leaves them: one cleanup pass a coded
-        block, its length the pass's rate."""
+        the native whole-tile encode leaves them: for HT one cleanup pass a
+        coded block, its length the pass's rate; for MQ 3 numbps - 2
+        passes and their rates."""
         st, fl = statics
         ncb, mb_g, isht_g, gmap, cblks = st[0], st[11], st[12], st[13], \
             st[14]
@@ -825,15 +854,23 @@ class TileCompressor:
         offs[order] = t.offs
         lens[order] = t.lens
         numbps[order] = t.numbps
+        mq = isinstance(t, t1_backend.MQEncodeTile)
+        if mq:
+            npasses = np.where(numbps > 0, 3 * numbps - 2, 0).astype(
+                np.int32)
+            rates = np.zeros((ncb, t.rates.shape[1]), np.int32)
+            rates[order] = t.rates
         for g in np.flatnonzero(numbps > mb_g).tolist():
             log.warning("codeblock numbps %d exceeds band M_b %d",
                         numbps[g], mb_g[g])
             numbps[g] = mb_g[g]
+        if not mq:
+            npasses = (numbps > 0).astype(np.int32)
+            rates = lens.reshape(ncb, 1)
         self._enc_seq = _EncSeq(
             arena=t.data, offs=offs, lens=lens, numbps=numbps,
-            npasses=(numbps > 0).astype(np.int32), zb=mb_g - numbps,
-            isht=isht_g, rates=lens.reshape(ncb, 1), stride=1, gmap=gmap,
-            cblks=cblks, ncb=ncb)
+            npasses=npasses, zb=mb_g - numbps, isht=isht_g, rates=rates,
+            stride=rates.shape[1], gmap=gmap, cblks=cblks, ncb=ncb)
 
     def _run_t1_tile_native_enc(self, need_dist: bool = False) -> bool:
         """Whole-tile native Tier-1 encode: every codeblock coded from
@@ -2498,14 +2535,15 @@ class TileDecompressor:
     def _decode_jobs(self):
         """The tile's Tier-1 decode jobs and, for each, its band's key and
         its rect; on a card Tier-1 tile also `_dev_bands`, the device bands
-        the decoders write into.  Where the tile's HT blocks decode on the
-        device as flat arrays (_ht_tile_decode) the jobs are one
-        t1_backend.HTDecodeTile, with keys and rects for its host jobs."""
+        the decoders write into.  Where the tile's blocks decode on the
+        device as flat arrays (_flat_tile_decode) the jobs are one
+        t1_backend.HTDecodeTile or MQDecodeTile, with keys and rects for
+        its host jobs."""
         if self._card_tile():
             # the device decoders write into these; the synthesis takes
             # them
             self._alloc_dev_bands()
-            flat = self._ht_tile_decode()
+            flat = self._flat_tile_decode()
             if flat is not None:
                 return flat
         self._mirror_seq()
@@ -2574,46 +2612,62 @@ class TileDecompressor:
             k: t.view(shape) for k, t, shape in zip(
                 self._band_arrays, flat.split(sizes), shapes)}
 
-    def _ht_tile_decode(self):
-        """The card route of a whole HT tile as flat arrays: (HTDecodeTile,
-        keys and rects of its host jobs), or None where the tile keeps the
-        per-codeblock route.  It takes a tile of `_device_eligible` whose
-        components are all HT (not ht_mixed), whose packets the sequence
-        decode read (_seq_result), and in which no block has more than one
-        chunk; `_dev_bands` must be allocated.  The descriptor rows come
-        from the chunk records and the cached statics in one array
-        expression, the segments stay where they lie in the tile's stream,
-        and only the blocks the native coder takes (odd sizes) become
-        jobs, decoded into the host band arrays."""
+    def _flat_tile_decode(self):
+        """The card route of a whole tile as flat arrays: (HTDecodeTile or
+        MQDecodeTile, keys and rects of its host jobs), or None where the
+        tile keeps the per-codeblock route.  It takes a tile of
+        `_device_eligible` whose components are all HT (not ht_mixed) or
+        all MQ, whose packets the sequence decode read (_seq_result) into
+        chunk records that lie inside the stream; `_dev_bands` must be
+        allocated.  The descriptor rows come from the chunk records and the
+        cached statics in array expressions, the bytes stay where they lie
+        in the tile's stream, and only the blocks the native coder takes
+        become jobs, decoded into the host band arrays."""
         seq = getattr(self, "_seq_result", None)
+        tccps = self.tcp.tccps
+        ht = all(t.ht for t in tccps)
         if (seq is None or getattr(self.cp, "ht_mixed", False)
-                or not all(t.ht for t in self.tcp.tccps)):
+                or (not ht and any(t.ht for t in tccps))):
             return None
-        recs, data, g_zb, _, ncb, t1_statics, cblk_by_g = seq
-        fl = self._ht_tile_dec_statics(t1_statics, ncb)
+        recs, data, _, _, ncb, t1_statics, _ = seq
+        fl = self._tile_dec_statics(t1_statics, ncb)
         if fl is None:
             return None
         r = recs.reshape(-1, 4).astype(np.int64)
-        g = r[:, 0]
-        if len(g) and (g.min() < 0 or g.max() >= ncb
-                       or np.bincount(g, minlength=ncb).max() > 1
+        if len(r) and (r[:, 0].min() < 0 or r[:, 0].max() >= ncb
                        or r[:, 2:].min() < 0
                        or (r[:, 2] + r[:, 3]).max() > len(data)):
             return None
+        bands = [self._dev_bands[k] for k in t1_statics[4]]
+        got = (self._ht_rows if ht else self._mq_rows)(seq, fl, r, bands)
+        if got is None:
+            return None
+        t, meta = got
+        ptr = np.fromiter((b.data_ptr() for b in bands), np.int64,
+                          len(bands))
+        b = t.blk[:, 0]
+        t.desc[:, 0] = ptr[b] + (t.blk[:, 1] * fl["bw"][b]
+                                 + t.blk[:, 2]) * 4
+        t.desc[:, 1] = fl["bw"][b]
+        return t, meta
+
+    def _ht_rows(self, seq, fl, r, bands):
+        """_flat_tile_decode's HT half, where no block has more than one
+        chunk: the HTDecodeTile with its device rows' columns 2 to 5 (h,
+        w, segment offset and length) and host jobs (odd sizes), and the
+        host jobs' keys and rects."""
+        _, data, g_zb, _, ncb, t1_statics, cblk_by_g = seq
+        g = r[:, 0]
+        if len(g) and np.bincount(g, minlength=ncb).max() > 1:
+            return None
         r = r[(r[:, 1] > 0) & fl["coded"][g]]
-        on_dev = fl["on_dev"][r[:, 0]]
+        on_dev = fl["even"][r[:, 0]]
         rd = r[on_dev]
         blk = fl["blk"][rd[:, 0]]
-        band_keys = t1_statics[4]
-        bands = [self._dev_bands[k] for k in band_keys]
-        ptr = np.fromiter((t.data_ptr() for t in bands), np.int64,
-                          len(bands))
-        b = blk[:, 0]
         desc = np.empty((len(rd), 8), np.int64)
-        desc[:, 0] = ptr[b] + (blk[:, 1] * fl["bw"][b] + blk[:, 2]) * 4
-        desc[:, 1] = fl["bw"][b]
         desc[:, 2:4] = blk[:, 3:5]
         desc[:, 4:6] = rd[:, 2:4]
+        band_keys = t1_statics[4]
         host, meta = [], []
         mv = memoryview(data)
         for gg, np_, off, ln in r[~on_dev].tolist():
@@ -2627,19 +2681,81 @@ class TileDecompressor:
             meta.append((key, cblk_by_g[gg].rect))
         return t1_backend.HTDecodeTile(data, desc, bands, blk, host), meta
 
-    def _ht_tile_dec_statics(self, t1_statics, ncb: int):
-        """What _ht_tile_decode reads of the sequence decode's Tier-1
+    def _mq_rows(self, seq, fl, r, bands):
+        """_flat_tile_decode's MQ half, for one layer, where each block's
+        chunks follow one another in the stream: the MQDecodeTile with its
+        device rows (ops/mq_decode.py flat_layout), and host jobs for the
+        blocks the per-codeblock route's router leaves on the host (styles
+        other than NONE and LAZY, numbps outside 0 to 26, shapes with fewer
+        than MQ_DECODE_MIN_GROUP blocks in the tile); and the host jobs'
+        keys and rects."""
+        from ..ops import mq_decode as dmqd
+        from ..ops.mq_tables import MAX_NUMBPS_DEVICE
+
+        _, data, g_zb, _, ncb, t1_statics, cblk_by_g = seq
+        if self.tcp.numlayers != 1:
+            return None
+        r = r[np.argsort(r[:, 0], kind="stable")]
+        g, rp, ro, rl = r.T
+        same = g[1:] == g[:-1]
+        if (r[:, 1].min(initial=0) < 0
+                or (ro[1:] != ro[:-1] + rl[:-1])[same].any()):
+            return None
+        cols = fl["cols"]
+        h, w, orient, style = cols[:, 3], cols[:, 4], cols[:, 5], cols[:, 6]
+        nb = cols[:, 7] - g_zb
+        live = (np.bincount(g, weights=rp, minlength=ncb) > 0) & fl["coded"]
+        ok = live & ((style == CblkStyle.NONE) | (style == CblkStyle.LAZY)) \
+            & (nb >= 0) & (nb <= MAX_NUMBPS_DEVICE)
+        ok_g = np.flatnonzero(ok)
+        _, grp, cnt = np.unique(h[ok_g] * 8192 + w[ok_g],
+                                return_inverse=True, return_counts=True)
+        idx = ok_g[cnt[grp] >= t1_backend.MQ_DECODE_MIN_GROUP]
+        dev = np.zeros(ncb, bool)
+        dev[idx] = True
+        pos = np.cumsum(dev) - 1
+        rd = dev[g]
+        desc, segs, pmap = dmqd.flat_layout(
+            nb[idx], (style[idx] == CblkStyle.LAZY).astype(np.int64),
+            h[idx], w[idx], pos[g[rd]], rp[rd], rl[rd])
+        desc[:, 4] = orient[idx]
+        desc[:, 7] = ro[np.searchsorted(g, idx)]
+        band_keys = t1_statics[4]
+        host, meta = [], []
+        mv = memoryview(data)
+        lo = np.searchsorted(g, np.arange(ncb))
+        hi = np.searchsorted(g, np.arange(ncb), side="right")
+        for gg in np.flatnonzero(live & ~dev).tolist():
+            bi, y, x, bh, bw, o, st, mb = cols[gg].tolist()
+            part = r[lo[gg]:hi[gg]].tolist()
+            got = t2.collect_seg_lengths(SimpleNamespace(
+                total_passes=sum(p[1] for p in part), numbps=int(nb[gg]),
+                seg_data=[mv[p[2]:p[2] + p[3]] for p in part],
+                seg_passes=[p[1] for p in part]), CblkStyle(st))
+            job = t1_backend.DecodeJob(*got, int(nb[gg]), bh, bw, o,
+                                       CblkStyle(st))
+            key = band_keys[bi]
+            job.out_dest = self._band_arrays[key][y:y + bh, x:x + bw]
+            host.append(job)
+            meta.append((key, cblk_by_g[gg].rect))
+        return t1_backend.MQDecodeTile(data, desc, segs, pmap, bands,
+                                       fl["blk"][idx], host), meta
+
+    def _tile_dec_statics(self, t1_statics, ncb: int):
+        """What _flat_tile_decode reads of the sequence decode's Tier-1
         statics, cached on the tile beside them: per global block its band
         id, row and column in the band, h, w, orient, style and mb, whether
-        it is coded at all and whether on the device, and the bands'
-        widths; None where the band arrays are not the statics' shapes."""
-        st_hw, st_meta, _, st_off, band_keys, band_shapes = t1_statics
+        it is coded at all and whether both its sides are even, and the
+        bands' widths; None where the band arrays are not the statics'
+        shapes."""
+        st_hw, st_meta, st_flags, st_off, band_keys, band_shapes = \
+            t1_statics
         if len(st_off) != ncb or any(
                 self._band_arrays.get(k) is None
                 or self._band_arrays[k].shape != shape
                 for k, shape in zip(band_keys, band_shapes)):
             return None
-        cached = getattr(self.tile, "_ht_tile_dec_cache", None)
+        cached = getattr(self.tile, "_flat_tile_dec_cache", None)
         if cached is not None and cached[0] is t1_statics:
             return cached[1]
         from ..ops import ht_encode as dht
@@ -2650,19 +2766,21 @@ class TileDecompressor:
         bw = np.asarray([max(s[1], 1) for s in band_shapes], np.int64)
         off = st_off.astype(np.int64)
         coded = (h > 0) & (w > 0)
-        on_dev = coded & (h % 2 == 0) & (w % 2 == 0)
-        dht.check_shapes(h[on_dev], w[on_dev])
+        even = coded & (h % 2 == 0) & (w % 2 == 0)
+        ht = even & (st_flags & 1).astype(bool)
+        dht.check_shapes(h[ht], w[ht])
         cols = np.stack([bid, off // bw[bid], off % bw[bid], h, w, m4[:, 0],
                          m4[:, 1], m4[:, 2]], 1)
         fl = {"cols": cols, "blk": np.ascontiguousarray(cols[:, :5]),
-              "coded": coded, "on_dev": on_dev, "bw": bw}
-        self.tile._ht_tile_dec_cache = (t1_statics, fl)
+              "coded": coded, "even": even, "bw": bw}
+        self.tile._flat_tile_dec_cache = (t1_statics, fl)
         return fl
 
     def _ingest_decoded(self, jobs, meta) -> None:
         """The blocks the host coder decoded, into the band arrays (and
         up to the device bands on a card Tier-1 tile)."""
-        if isinstance(jobs, t1_backend.HTDecodeTile):
+        if isinstance(jobs, (t1_backend.HTDecodeTile,
+                             t1_backend.MQDecodeTile)):
             jobs = jobs.host
         for job, (key, rect) in zip(jobs, meta):
             if job.device_done:

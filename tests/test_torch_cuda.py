@@ -687,6 +687,52 @@ def test_sharded_levels_on_the_card(gen, sp, h, w):
         assert _bits_equal(back, want)
 
 
+@pytest.mark.parametrize("style", mq_cases.STYLES)
+def test_mq_flat_tiles_match_per_codeblock_route(gen, monkeypatch, style):
+    """MQ tiles on the card as flat batches (one descriptor build, launch
+    and result a tile each way): the codestream and the decode equal the
+    per-codeblock route's, for NONE and LAZY, in six tiles whose quarters
+    stop at different depths (edge tiles with shape groups under 8, whose
+    blocks decode on the native coder inside the flat batch)."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, GrkImage
+    from grok_tpu_torch.t1 import backend
+    from grok_tpu_torch.tile import processor
+
+    rng = np.random.default_rng(17)
+    arr = rng.integers(0, 1 << 12, (256, 300))
+    arr[:128] >>= 6
+    arr[:, :150] >>= 3
+    img = GrkImage.from_array(arr.astype(np.uint16), prec=12)
+    params = CompressParams(numresolution=4, tile_size=(128, 128),
+                            cblk_width=16, cblk_height=16, cblk_style=style)
+    counts = backend.DEVICE_CODEBLOCKS
+
+    def run():
+        for k in counts:
+            counts[k] = 0
+        data = grok_tpu_torch.compress(img, params)
+        out = grok_tpu_torch.decompress(data).to_array()
+        return data, out, dict(counts)
+
+    flat, flat_out, moved = run()
+    assert moved["mq_encode_flat"] == moved["mq_encode_device"] > 0
+    assert moved["mq_decode_flat"] == moved["mq_decode_device"] > 0
+    assert moved["mq_decode_host"] > 0
+    assert np.array_equal(flat_out, arr)
+    monkeypatch.setattr(processor.TileCompressor, "_flat_tile_encode",
+                        lambda self: None)
+    monkeypatch.setattr(processor.TileDecompressor, "_mq_rows",
+                        lambda *a: None)
+    per_block, out, moved_pb = run()
+    assert moved_pb["mq_encode_flat"] == moved_pb["mq_decode_flat"] == 0
+    assert per_block == flat
+    assert np.array_equal(out, flat_out)
+    for k in ("mq_encode_device", "mq_decode_device", "mq_encode_host",
+              "mq_decode_host", "mq_encode_passes", "mq_decode_passes"):
+        assert moved_pb[k] == moved[k], k
+
+
 def _mesh_codec_case(mesh):
     """Lossless HT in one tile, and lossy MQ in six tiles, through
     `mesh`: the single-device card bytes and decodes, each level kernel

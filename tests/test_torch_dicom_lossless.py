@@ -56,6 +56,9 @@ def test_lossless_deep_one_component_judged(config, mix_name, h, w):
         # device route: the passes it counts are the codestream's
         assert moved["mq_encode_device"] == len(blocks)
         assert moved["mq_encode_passes"] == sum(b.passes for b in blocks)
+        # the one tile codes as a flat batch each way
+        assert moved["mq_encode_flat"] == moved["mq_encode_device"]
+        assert moved["mq_decode_flat"] == moved["mq_decode_device"]
         # decode takes shape groups of 8 or more to the device route
         assert moved["mq_decode_device"] + moved["mq_decode_host"] == \
             len(blocks)

@@ -319,19 +319,6 @@ def test_host_tiles_match_reference(rng, name, kw, dkw):
                                         if name == "odd_origin" else 0)
 
 
-def _tile_parts(data: bytes):
-    """(start of the tile-part data after SOD, end) of each tile-part of
-    a codestream whose tile-parts follow one another from the first SOT."""
-    out = []
-    pos = data.index(b"\xff\x90")
-    while pos + 12 <= len(data) and data[pos:pos + 2] == b"\xff\x90":
-        psot = int.from_bytes(data[pos + 6:pos + 10], "big")
-        sod = data.index(b"\xff\x93", pos + 12)
-        out.append((sod + 2, pos + psot))
-        pos += psot
-    return out
-
-
 def test_flat_tiles_decode_corrupt_streams_as_reference_device(rng):
     """A multi-tile HT codestream with bytes flipped in the last packet
     bodies of every tile, and one cut short inside its last tile, decode
@@ -342,7 +329,7 @@ def test_flat_tiles_decode_corrupt_streams_as_reference_device(rng):
     kw = dict(ht=True, numresolution=3, tile_size=(64, 64))
     data = grok_tpu.compress(grok_tpu.GrkImage.from_array(arr),
                              grok_tpu.CompressParams(**kw))
-    parts = _tile_parts(data)
+    parts = cases.tile_parts(data)
     assert len(parts) == 4
     bad = np.frombuffer(data, np.uint8).copy()
     for start, end in parts:

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import grok_tpu
+import torch_ht_cases as ht_cases
 import torch_mq_cases as cases
 from grok_tpu.ops import mq_decode as ref_dec
 from grok_tpu.ops import mq_encode as ref_enc
@@ -276,13 +277,23 @@ CODEC_CASES = [
 ]
 
 
+# the cases whose tiles take the flat route both ways: lazy_96's and
+# none_96's one tile and rgb_tiles' six 32 x 32 tiles (all MQ, one layer,
+# no rate target, aligned to the grid); layers_128 tracks distortions for
+# its two layers, so neither way is flat.  The 96 x 96 tiles have no
+# decode shape group of 8, so their flat decode batches hold host jobs
+# alone
+FLAT = {"lazy_96", "none_96", "rgb_tiles"}
+
+
 @pytest.mark.parametrize("name,make,kw", CODEC_CASES,
                          ids=[c[0] for c in CODEC_CASES])
 def test_codec_matches_reference(rng, monkeypatch, name, make, kw):
     """backend="device" on device="cpu": byte-identical to grok_tpu's
     native and device routes, decodes exactly, and codes on the device
     route exactly the MQ blocks grok_tpu's device routers take (the
-    per-shape decode gate of 8 included)."""
+    per-shape decode gate of 8 included), as flat tile batches where the
+    gate admits the tiles."""
     arr = make(rng)
     img = grok_tpu.GrkImage.from_array(arr)
     ref_kw = dict(kw)
@@ -308,3 +319,106 @@ def test_codec_matches_reference(rng, monkeypatch, name, make, kw):
     assert counts["mq_decode_host"] + counts["mq_decode_device"] == \
         counts["mq_encode_device"] + counts["mq_encode_host"]
     assert counts["encode_device"] == counts["decode_device"] == 0
+    if name in FLAT:
+        assert counts["mq_encode_flat"] == counts["mq_encode_device"] > 0
+        assert counts["mq_decode_flat"] == counts["mq_decode_device"]
+        assert (counts["mq_decode_flat"] > 0) == (name == "rgb_tiles")
+    else:
+        assert counts["mq_encode_flat"] == counts["mq_decode_flat"] == 0
+
+
+def _lazy_depths(rng, h, w):
+    """A gray image whose quarters range from 2 to 256 levels, so that its
+    LAZY blocks stop at several numbps, some with raw segments."""
+    arr = rng.integers(0, 256, (h, w))
+    for k, levels in enumerate((2, 16, 64, 256)):
+        y, x = divmod(k, 2)
+        q = arr[y * h // 2:(y + 1) * h // 2, x * w // 2:(x + 1) * w // 2]
+        q //= 256 // levels
+    return arr.astype(np.uint8)
+
+
+@pytest.mark.parametrize("style", cases.STYLES)
+def test_flat_tiles_decode_corrupt_streams_as_reference_device(rng,
+                                                              style):
+    """A multi-tile MQ codestream with bytes flipped in the last packet
+    bodies of every tile, and one cut short inside its last tile, decode
+    on the port's flat route (one batch a tile: the padded length Lb and
+    the gate of 8 a shape are the tile's, as in grok_tpu's router) to what
+    grok_tpu's device decode gives."""
+    arr = _lazy_depths(rng, 128, 128)
+    kw = dict(numresolution=3, tile_size=(64, 64), cblk_width=16,
+              cblk_height=16, cblk_style=RefStyle(int(style)))
+    data = grok_tpu.compress(grok_tpu.GrkImage.from_array(arr),
+                             grok_tpu.CompressParams(**kw))
+    parts = ht_cases.tile_parts(data)
+    assert len(parts) == 4
+    bad = np.frombuffer(data, np.uint8).copy()
+    for start, end in parts:
+        at = rng.integers(start + (end - start) * 3 // 4, end, 6)
+        bad[at] ^= rng.integers(1, 256, 6).astype(np.uint8)
+    start, end = parts[-1]
+    for stream in (bad.tobytes(), data[:start + (end - start) * 2 // 3]):
+        counts = t1_backend.DEVICE_CODEBLOCKS
+        for k in counts:
+            counts[k] = 0
+        out = grok_tpu_torch.decompress(stream, device="cpu").to_array()
+        want = grok_tpu.decompress(
+            stream, grok_tpu.DecompressParams(backend="device")).to_array()
+        assert np.array_equal(out, want)
+        assert counts["mq_decode_flat"] == counts["mq_decode_device"] > 0
+
+
+def test_flat_regrouping_matches_per_codeblock_layout(rng, monkeypatch):
+    """The flat batch of a LAZY tile whose blocks stop at several numbps,
+    several segments each: every device block's numbps, passes, h, w,
+    orient, bytes, Lb, segment bounds and pass map read as `layout` gives
+    them over the per-codeblock route's items for the same tile (blocks
+    matched by where they land in the tile's device bands)."""
+    from grok_tpu_torch.tile import processor
+
+    arr = _lazy_depths(rng, 64, 64)
+    data = grok_tpu_torch.compress(
+        grok_tpu_torch.GrkImage.from_array(arr), grok_tpu_torch.CompressParams(
+            numresolution=3, cblk_width=16, cblk_height=16,
+            cblk_style=CblkStyle.LAZY), device="cpu")
+    seen = {}
+    flat_twin, item_twin = mq_decode.decode_flat_plain, \
+        mq_decode.decode_cblks_mq
+
+    def flat(lay, device, outs):
+        seen["flat"] = lay, outs
+        return flat_twin(lay, device, outs)
+
+    def per_block(items, device, outs=None):
+        seen["items"] = items, outs
+        return item_twin(items, device, outs)
+
+    monkeypatch.setattr(mq_decode, "decode_flat_plain", flat)
+    monkeypatch.setattr(mq_decode, "decode_cblks_mq", per_block)
+    want = grok_tpu_torch.decompress(data, device="cpu").to_array()
+    (desc, stream, segs, pmap), outs = seen.pop("flat")
+    monkeypatch.setattr(processor.TileDecompressor, "_mq_rows",
+                        lambda *a: None)
+    got = grok_tpu_torch.decompress(data, device="cpu").to_array()
+    assert np.array_equal(got, want) and np.array_equal(got, arr)
+
+    def where(o):
+        return o.data_ptr() - o.untyped_storage().data_ptr()
+
+    def fields(desc, joined, segs, pmap, k):
+        h, w, orient, nb, npass, off, ln, lb, so, ns, po = \
+            desc[k, 2:].tolist()
+        npb = 3 * nb - 2 if nb else 0
+        return (h, w, orient, nb, npass, lb, joined[off:off + ln].tobytes(),
+                segs[so:so + ns].tolist(), pmap[po:po + npb].tolist())
+
+    flat_rows = {where(o): fields(desc, stream, segs, pmap, k)
+                 for k, o in enumerate(outs)}
+    items, outs = seen["items"]
+    ref = mq_decode.layout(items)
+    item_rows = {where(o): fields(*ref, k) for k, o in enumerate(outs)}
+    assert flat_rows == item_rows
+    nbs = {r[3] for r in flat_rows.values()}
+    assert len(nbs) >= 4 and max(nbs) >= 6
+    assert max(len(r[7]) for r in flat_rows.values()) >= 3

@@ -1,9 +1,9 @@
 """Inputs shared by the HT tests of the port (tests/test_torch_ht.py on the
 CPU, tests/test_torch_cuda.py on the card): codeblocks made from a seed
 with numpy, segments, corrupt streams and the three CxtVLC table swaps;
-and `check_decode`, the HT decode kernels' outputs held to the twins stage
-by stage.  Imports neither jax nor grok_tpu, so the card tests can use
-it."""
+`check_decode`, the HT decode kernels' outputs held to the twins stage
+by stage; and `tile_parts`, where a codestream's tile-parts lie.  Imports
+neither jax nor grok_tpu, so the card tests can use it."""
 
 import numpy as np
 import torch
@@ -138,3 +138,16 @@ def check_decode(ht_decode, args, outs, items):
                            umax_q[i, :nq])
     for o, w in zip(outs, ht_decode.decode_cblks_ht_plain(items)):
         assert torch.equal(o.cpu(), w)
+
+
+def tile_parts(data: bytes):
+    """(start of the tile-part data after SOD, end) of each tile-part of
+    a codestream whose tile-parts follow one another from the first SOT."""
+    out = []
+    pos = data.index(b"\xff\x90")
+    while pos + 12 <= len(data) and data[pos:pos + 2] == b"\xff\x90":
+        psot = int.from_bytes(data[pos + 6:pos + 10], "big")
+        sod = data.index(b"\xff\x93", pos + 12)
+        out.append((sod + 2, pos + psot))
+        pos += psot
+    return out
