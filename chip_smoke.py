@@ -816,12 +816,13 @@ def check_mq(mq_encode, mq_decode, cases, blocks_a, orients_a):
 
 def mq_card_items(items):
     """The indices of the decode items the decode router sends to the
-    card: shape groups of MQ_DECODE_MIN_GROUP or more."""
-    from grok_tpu_torch.t1.backend import MQ_DECODE_MIN_GROUP
+    card, by the placement rule (t1/backend.py on_card)."""
+    from grok_tpu_torch.t1.backend import on_card
 
-    count = Counter((it[4], it[5]) for it in items)
-    return [k for k, it in enumerate(items)
-            if count[(it[4], it[5])] >= MQ_DECODE_MIN_GROUP]
+    h, w, style, nb = np.array([(it[4], it[5], int(it[7]), it[3])
+                                for it in items], np.int64).reshape(-1, 4).T
+    return np.flatnonzero(on_card(False, h, w, style, nb,
+                                  decode=True)).tolist()
 
 
 def time_mq_shape(label, blocks, orients, mq_encode, mq_decode):

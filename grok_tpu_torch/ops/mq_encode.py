@@ -21,9 +21,10 @@ step with only lane 0 storing, the warp's lanes split over the load, the
 plane bits and the distortions, segments finished in the kernel; dynamic shared memory sized by the launch's
 largest block, `mq_tables.launch_smem`), then two copies back.  A tile's
 blocks can also go as flat arrays: `desc_args` takes the descriptor rows
-the caller built with numpy, and `finish_encode_flat` hands back the pool,
-the per-block results and the rates as arrays, with no per-block Python
-object (no distortions on that route).  On CPU
+the caller built with numpy (`desc_rows`, then the addresses), and
+`finish_encode_flat` hands back the pool, the per-block results and the
+rates as arrays, with no per-block Python object (no distortions on that
+route).  On CPU
 tensors it is the plain PyTorch twin `encode_cblks_mq_plain`, written
 after the reference's formulation so its stages can be held to the
 reference's:
@@ -186,17 +187,27 @@ def encode_args(blocks, orients, lazy, need_dist, bounds,
     """The kernel's arguments: (desc, slots, packed, used, meta, rates,
     terms, dists) on the device, then the launch's dynamic shared memory in
     bytes.  The blocks must outlive the launch."""
-    n = len(blocks)
-    desc = np.zeros((n, len(DESC)), np.int64)
+    hw = np.array([tuple(b.shape) for b in blocks], np.int64).reshape(-1, 2)
+    desc = desc_rows(hw[:, 0], hw[:, 1], orients, lazy, need_dist, bounds)
     desc[:, 0] = [b.data_ptr() for b in blocks]
     desc[:, 1] = [b.stride(0) for b in blocks]
-    desc[:, 2:4] = [tuple(b.shape) for b in blocks]
-    desc[:, 4] = orients
+    return desc_args(desc, device)
+
+
+def desc_rows(h, w, orient, lazy, need_dist, bounds) -> np.ndarray:
+    """DESC rows with the coefficient pointer and row stride left 0: per
+    block (arrays, or one value for all but h) h, w, orient, the lazy and
+    need_dist flags, and an output slot sized by the block's numbps bound,
+    the slots one after another."""
+    desc = np.zeros((len(h), len(DESC)), np.int64)
+    desc[:, 2] = h
+    desc[:, 3] = w
+    desc[:, 4] = orient
     desc[:, 5] = lazy
     desc[:, 6] = need_dist
     desc[:, 8] = out_capacity(desc[:, 2], desc[:, 3], np.asarray(bounds))
     desc[:, 7] = np.cumsum(desc[:, 8]) - desc[:, 8]
-    return desc_args(desc, device)
+    return desc
 
 
 def desc_args(desc: np.ndarray, device: torch.device):

@@ -10,20 +10,17 @@ dispatch between implementations:
   codeblocks — the production host path; "auto" resolves to it
 - "device": the codeblocks grok_tpu's device routers take code on the
   torch device the tile processor passes in (the CUDA kernels on a card,
-  their plain twins on the CPU): HT blocks with even height and width (and,
-  on encode, numbps_bound <= 25) through the HT cleanup coders
-  (ops/ht_encode.py, ops/ht_decode.py); MQ blocks of style NONE or LAZY
-  with numbps_bound <= 26 (<= 20 when distortions are tracked) through the
-  MQ coders (ops/mq_encode.py, ops/mq_decode.py), on decode only in groups
-  of at least 8 blocks of one shape, as the reference's router gates them.
-  The rest code on the native coder.
+  their plain twins on the CPU): HT blocks through the HT cleanup coders
+  (ops/ht_encode.py, ops/ht_decode.py), MQ blocks through the MQ coders
+  (ops/mq_encode.py, ops/mq_decode.py); `on_card` is the one rule that
+  decides which blocks those are.  The rest code on the native coder.
 
 Batch API: lists of codeblock jobs so the native backend can parallelize
 freely (SURVEY.md §2.3 "codeblock-batch axis").  Under backend="device" a
 tile whose codeblocks are all HT, or all MQ, may come instead as one flat
-batch (HTEncodeTile, HTDecodeTile, MQEncodeTile, MQDecodeTile): per-block
-numpy arrays over the tile's band tensors, and job objects only for the
-few blocks the native coder takes.
+batch (HTEncodeTile, HTDecodeTile, MQEncodeTile, MQDecodeTile, built by
+t1/tile_batch.py): per-block numpy arrays over the tile's band tensors,
+and job objects only for the few blocks the native coder takes.
 """
 
 from __future__ import annotations
@@ -305,30 +302,57 @@ def _decode_ht(jobs: list[DecodeJob]) -> None:
         j.out = ht.decode_cblk_ht(j.data, j.h, j.w)
 
 
-def ht_device_eligible(h: int, w: int, numbps_bound: int = 0) -> bool:
-    """The HT blocks grok_tpu's device routers take: even height and width
-    and, on encode, numbps_bound <= MAX_NUMBPS_DEVICE (25)."""
-    from ..ops.ht_encode import MAX_NUMBPS_DEVICE
-
-    return h % 2 == 0 and w % 2 == 0 and numbps_bound <= MAX_NUMBPS_DEVICE
-
-
-def mq_device_eligible(style, numbps_bound: int,
-                       need_dist: bool = False) -> bool:
-    """The MQ blocks grok_tpu's device encode router takes: style NONE or
-    LAZY and numbps_bound <= MAX_NUMBPS_DEVICE (26), or <= MAX_NUMBPS_DIST
-    (20) when distortions are tracked."""
-    from ..ops.mq_tables import MAX_NUMBPS_DEVICE, MAX_NUMBPS_DIST
-
-    cap = MAX_NUMBPS_DIST if need_dist else MAX_NUMBPS_DEVICE
-    return CblkStyle(int(style)) in (CblkStyle.NONE, CblkStyle.LAZY) \
-        and numbps_bound <= cap
-
-
 # grok_tpu's decode router sends an MQ shape group to its device only from
 # this many blocks (there, to pay for a jit compile a shape); kept so the
 # same blocks decode on the card, corrupt streams included
 MQ_DECODE_MIN_GROUP = 8
+
+
+def on_card(ht, h, w, style, numbps, decode: bool = False,
+            need_dist=False) -> np.ndarray:
+    """The placement rule: which codeblocks of one call code on the
+    device, the ones grok_tpu's device routers take; the rest code on the
+    native coder.  Per block (arrays, or one value for all): HT or MQ, h,
+    w, style and numbps (on encode the band's bound M_b, on decode the
+    block's own), and on encode need_dist.
+    - HT: even h and w and, on encode, numbps <= ops/ht_encode.py
+      MAX_NUMBPS_DEVICE (25).
+    - MQ: style NONE or LAZY and 0 <= numbps <= ops/mq_tables.py
+      MAX_NUMBPS_DEVICE (26), or MAX_NUMBPS_DIST (20) with need_dist; on
+      decode only in shape groups of MQ_DECODE_MIN_GROUP or more such
+      blocks in the call.
+    Returns one bool a block."""
+    from ..ops.ht_encode import MAX_NUMBPS_DEVICE as HT_MAX
+    from ..ops.mq_tables import MAX_NUMBPS_DEVICE, MAX_NUMBPS_DIST
+
+    ht, h, w, style, numbps = np.broadcast_arrays(
+        *(np.asarray(v, np.int64) for v in (ht, h, w, style, numbps)))
+    ht = ht.astype(bool)
+    even = (h % 2 == 0) & (w % 2 == 0)
+    mq = ~ht & ((style == CblkStyle.NONE) | (style == CblkStyle.LAZY)) \
+        & (numbps >= 0) & (numbps <= np.where(need_dist, MAX_NUMBPS_DIST,
+                                              MAX_NUMBPS_DEVICE))
+    if not decode:
+        return np.where(ht, even & (numbps <= HT_MAX), mq)
+    idx = np.flatnonzero(mq)
+    _, grp, cnt = np.unique(h[idx] * 8192 + w[idx], return_inverse=True,
+                            return_counts=True)
+    mq[idx] = cnt[grp] >= MQ_DECODE_MIN_GROUP
+    return np.where(ht, even, mq)
+
+
+def _placed(jobs: list, decode: bool = False) -> tuple[list, list]:
+    """on_card over a job list: (the jobs it places on the device, the
+    rest), each in job order."""
+    if decode:
+        f = [(j.ht, j.h, j.w, int(j.style), j.numbps, False) for j in jobs]
+    else:
+        f = [(j.ht, *j.coeffs.shape, int(j.style), j.numbps_bound,
+              j.need_dist) for j in jobs]
+    a = np.array(f, np.int64).reshape(-1, 6).T
+    card = on_card(*a[:5], decode=decode, need_dist=a[5] != 0).tolist()
+    return ([j for j, c in zip(jobs, card) if c],
+            [j for j, c in zip(jobs, card) if not c])
 
 
 def _on_device(arrs, device: torch.device) -> list[torch.Tensor]:
@@ -368,17 +392,13 @@ def _e0(j: EncodeJob, sumsq: int) -> float:
 
 def _encode_ht_device(jobs: list[EncodeJob],
                       device: torch.device) -> list[EncodeJob]:
-    """Code the device-eligible HT jobs in one call of the cleanup encoder
-    (mixed shapes together); returns the jobs left for the host coder."""
+    """Code the HT jobs on_card places on the device in one call of the
+    cleanup encoder (mixed shapes together); returns the jobs left for the
+    host coder."""
     from ..ops import ht_encode as dht
     from ..t1.coder import PassInfo
 
-    dev: list[EncodeJob] = []
-    rest: list[EncodeJob] = []
-    for j in jobs:
-        h, w = j.coeffs.shape
-        (dev if ht_device_eligible(h, w, j.numbps_bound)
-         else rest).append(j)
+    dev, rest = _placed(jobs)
     if dev:
         segs, sumsq = dht.encode_cblks_ht(
             _on_device([j.coeffs for j in dev], device))
@@ -393,17 +413,14 @@ def _encode_ht_device(jobs: list[EncodeJob],
 
 def _decode_ht_device(jobs: list[DecodeJob],
                       device: torch.device) -> list[DecodeJob]:
-    """Decode the even-dim HT jobs in one call of the cleanup decoder
-    (mixed shapes together: one batch, as grok_tpu's router makes, which
-    corrupt streams depend on).  A job with `out_device` is written there;
-    the others come back to the host in one copy.  Returns the jobs left
-    for the host decoder."""
+    """Decode the HT jobs on_card places on the device in one call of the
+    cleanup decoder (mixed shapes together: one batch, as grok_tpu's router
+    makes, which corrupt streams depend on).  A job with `out_device` is
+    written there; the others come back to the host in one copy.  Returns
+    the jobs left for the host decoder."""
     from ..ops import ht_decode as dht
 
-    dev: list[DecodeJob] = []
-    rest: list[DecodeJob] = []
-    for j in jobs:
-        (dev if ht_device_eligible(j.h, j.w) else rest).append(j)
+    dev, rest = _placed(jobs, decode=True)
     if dev:
         _decode_into(dev, device, dht.decode_cblks_ht,
                      [(j.data, j.h, j.w) for j in dev])
@@ -413,16 +430,12 @@ def _decode_ht_device(jobs: list[DecodeJob],
 
 def _encode_mq_device(jobs: list[EncodeJob],
                       device: torch.device) -> list[EncodeJob]:
-    """Code the device-eligible MQ jobs in one call of the MQ encoder (mixed
-    shapes and styles together); returns the jobs left for the host
-    coder."""
+    """Code the MQ jobs on_card places on the device in one call of the MQ
+    encoder (mixed shapes and styles together); returns the jobs left for
+    the host coder."""
     from ..ops import mq_encode as dmq
 
-    dev: list[EncodeJob] = []
-    rest: list[EncodeJob] = []
-    for j in jobs:
-        (dev if mq_device_eligible(j.style, j.numbps_bound, j.need_dist)
-         else rest).append(j)
+    dev, rest = _placed(jobs)
     passes = 0
     if dev:
         res = dmq.encode_cblks_mq(
@@ -446,25 +459,13 @@ def _encode_mq_device(jobs: list[EncodeJob],
 
 def _decode_mq_device(jobs: list[DecodeJob],
                       device: torch.device) -> list[DecodeJob]:
-    """Decode the MQ jobs grok_tpu's router sends to its device (style NONE
-    or LAZY, 0 <= numbps <= 26, shape groups of MQ_DECODE_MIN_GROUP or
-    more) in one call of the MQ decoder, mixed shapes together.  A job
-    with `out_device` is written there; the others come back to the host
-    in one copy.  Returns the jobs left for the host decoder."""
+    """Decode the MQ jobs on_card places on the device in one call of the
+    MQ decoder, mixed shapes together.  A job with `out_device` is written
+    there; the others come back to the host in one copy.  Returns the jobs
+    left for the host decoder."""
     from ..ops import mq_decode as dmqd
-    from ..ops.mq_tables import MAX_NUMBPS_DEVICE
 
-    groups: dict = defaultdict(list)
-    rest: list[DecodeJob] = []
-    for j in jobs:
-        if CblkStyle(int(j.style)) not in (CblkStyle.NONE, CblkStyle.LAZY) \
-                or not 0 <= j.numbps <= MAX_NUMBPS_DEVICE:
-            rest.append(j)
-            continue
-        groups[(j.h, j.w)].append(j)
-    dev: list[DecodeJob] = []
-    for g in groups.values():
-        (dev if len(g) >= MQ_DECODE_MIN_GROUP else rest).extend(g)
+    dev, rest = _placed(jobs, decode=True)
     if dev:
         _decode_into(dev, device, dmqd.decode_cblks_mq,
                      [(j.data, j.seg_lengths, j.num_passes, j.numbps, j.h,

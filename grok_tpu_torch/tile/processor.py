@@ -13,10 +13,9 @@ quantizes there too, and such a tile is marked _device_quantized so that
 Tier-1 does not quantize its bands a second time.  Every other tile takes
 the numpy host path here and is counted in HOST_PATH_TILES.  Under
 backend="device" the codeblocks that grok_tpu's device routers take are
-Tier-1 coded on the device too (t1/backend.py): HT blocks with even
-height and width (numbps_bound <= 25), and MQ blocks of style NONE or LAZY
-(numbps_bound <= 26, or <= 20 when distortions are tracked; on decode in
-shape groups of at least 8).  A tile
+Tier-1 coded on the device too, placed by t1/backend.py on_card; a tile
+that may code as one flat batch is built into one by t1/tile_batch.py
+from the tile's BlockTable, which the walks here fill.  A tile
 with such blocks ("card Tier-1", _card_t1) skips the whole-tile native
 Tier-1 calls and keeps its bands on the device: the encoders read their
 codeblocks there in place, and a band goes to the host only for the blocks
@@ -46,6 +45,7 @@ from ..params import (
     TileCodingParams,
 )
 from ..t1 import backend as t1_backend
+from ..t1 import tile_batch
 from ..t2 import packets as t2
 from ..trace import span
 from ..transform import dwt as dwt_mod
@@ -71,31 +71,23 @@ HOST_PATH_TILES: dict[str, int] = {"encode": 0, "decode": 0}
 def host_backend(backend: str) -> str:
     """The Tier-1 backend for a requested codec backend.  "device" stays
     "device": the device transforms and device HT and MQ Tier-1, with the
-    native host coder for what stays on the host (MQ blocks outside the
-    device routers' limits, MQ decode shape groups under 8, ragged HT
-    blocks, Tier-2), which must load: where it does not, this raises rather
-    than coding those blocks in pure Python."""
+    native host coder for what stays on the host (the blocks
+    t1_backend.on_card leaves there, Tier-2), which must load: where it
+    does not, this raises rather than coding those blocks in pure
+    Python."""
     if backend == "device" and t1_backend.resolve("native") != "native":
         raise RuntimeError(
-            "backend='device' codes the MQ blocks outside the device "
-            "routers' limits, MQ decode shape groups under 8, ragged HT "
-            "blocks and Tier-2 on the native host coder, which did not "
-            "load")
+            "backend='device' codes the blocks the device coders do not "
+            "take and Tier-2 on the native host coder, which did not load")
     return backend
-
-
-def _resolved(device: torch.device) -> torch.device:
-    """`device` with its index, as a tensor made there reports it."""
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _card_t1(tcp) -> bool:
     """Whether backend="device" codes blocks of this tile on the device:
     it has HT blocks, or MQ blocks of a style the device MQ coders take."""
-    return any(t.ht or t1_backend.mq_device_eligible(t.cblk_style, 0)
-               for t in tcp.tccps)
+    return bool(t1_backend.on_card(
+        [t.ht for t in tcp.tccps], 0, 0,
+        [int(t.cblk_style) for t in tcp.tccps], 0).any())
 
 
 # whole-tile encode scratch (arena + rates matrix), grown and reused per
@@ -294,6 +286,35 @@ def release_tile(tile: Tile) -> None:
     tile._geo_key = None  # double-release is a no-op
 
 
+def _device_eligible(t, decode: bool = False) -> bool:
+    """Whether the device pipeline takes the tile of TileCompressor or
+    TileDecompressor `t`: grid-aligned, unsubsampled, uniform tiles, and
+    on decode with no reduce, window or ROI; everything else uses the
+    host numpy path."""
+    tile, tcp, image = t.tile, t.tcp, t.image
+    if decode and (t.reduce or t.window is not None):
+        return False
+    t0 = tcp.tccps[0]
+    nl = t0.numresolutions - 1
+    align = 1 << nl
+    for compno, tc in enumerate(tile.comps):
+        comp = image.comps[compno]
+        tccp = tcp.tccps[compno]
+        if comp.dx != 1 or comp.dy != 1:
+            return False
+        if (tccp.numresolutions != t0.numresolutions
+                or tccp.qmfbid != t0.qmfbid
+                or comp.prec != image.comps[0].prec
+                or comp.sgnd != image.comps[0].sgnd
+                or (decode and tccp.roi_shift)):
+            return False
+        if tc.rect.x0 % align or tc.rect.y0 % align:
+            return False
+        if tc.rect != tile.comps[0].rect:
+            return False
+    return tcp.mct in (0, 1) and _uniform_quant(tcp)
+
+
 def _uniform_quant(tcp) -> bool:
     """Device pipelines apply ONE (resno, orient) -> stepsize table to the
     whole component stack, so per-component quantization (QCC) must fall
@@ -345,33 +366,10 @@ class TileCompressor:
 
     # ---- stage 1: sample pipeline (DC shift + MCT + DWT + quant + T1) ----
 
-    def device_eligible(self) -> bool:
-        """The device pipeline handles grid-aligned, unsubsampled, uniform
-        tiles; everything else uses the host numpy path."""
-        tile, tcp, image = self.tile, self.tcp, self.image
-        t0 = tcp.tccps[0]
-        nl = t0.numresolutions - 1
-        align = 1 << nl
-        for compno, tc in enumerate(tile.comps):
-            comp = image.comps[compno]
-            tccp = tcp.tccps[compno]
-            if comp.dx != 1 or comp.dy != 1:
-                return False
-            if (tccp.numresolutions != t0.numresolutions
-                    or tccp.qmfbid != t0.qmfbid
-                    or comp.prec != image.comps[0].prec
-                    or comp.sgnd != image.comps[0].sgnd):
-                return False
-            if tc.rect.x0 % align or tc.rect.y0 % align:
-                return False
-            if tc.rect != tile.comps[0].rect:
-                return False
-        return tcp.mct in (0, 1) and _uniform_quant(tcp)
-
     def run_transforms(self) -> None:
         if getattr(self, "_transforms_done", False):
             return  # already produced by the batched call
-        if self.device is not None and self.device_eligible():
+        if self.device is not None and _device_eligible(self):
             mesh = self.mesh
             if mesh is not None and (pmesh.sp_size(mesh) == 1
                                      or not _sp_fits(mesh, [self])):
@@ -494,6 +492,10 @@ class TileCompressor:
             if flat is not None:
                 return flat
         tile, tcp = self.tile, self.tcp
+        # the blocks on_card places on the device, by index in the table
+        table, _, gmap = self._t1enc_statics()
+        card = t1_backend.on_card(table.ht, table.h, table.w, table.style,
+                                  table.mb, need_dist=need_dist)
         jobs = []
         job_meta = []
         for compno, tc in enumerate(tile.comps):
@@ -529,14 +531,8 @@ class TileCompressor:
                             # truncation where the energy is), HT elsewhere
                             use_ht = tccp.ht and not (mixed and res.resno == 0)
                             cblk.is_ht = use_ht
-                            if use_ht:
-                                card = t1_backend.ht_device_eligible(
-                                    cr.h, cr.w, band.numbps)
-                            else:
-                                card = t1_backend.mq_device_eligible(
-                                    tccp.cblk_style, band.numbps,
-                                    need_dist)
-                            if on_dev and (tccp.roi_shift or not card):
+                            if on_dev and (tccp.roi_shift
+                                           or not card[gmap[id(cblk)]]):
                                 if host_band is None:
                                     host_band = coeffs.cpu().numpy()
                                 sl = host_band[
@@ -626,12 +622,12 @@ class TileCompressor:
             cblk._e0 = weight * e0
 
     def _t1enc_statics(self):
-        """Per-codeblock encode statics for grk_t1_encode_tile, a pure
-        function of the pooled tile's geometry plus the coding/quant key
-        below — cached on the tile object (mirror of the decode-side
-        _seq_state).  Enumeration is the run_t1 band walk; `gmap` maps
-        codeblock identity -> global encode index so _write_packets_seq
-        can gather results into its own first-encounter order."""
+        """The tile's encode BlockTable (t1/tile_batch.py), the codeblock
+        objects in its order and `gmap`, codeblock identity -> index in it,
+        which _write_packets_seq gathers results by.  A pure function of
+        the pooled tile's geometry plus the coding/quant key below, cached
+        on the tile object (mirror of the decode-side _seq_state); the
+        walk is the precinct walk grk_t1_encode_tile takes."""
         tcp = self.tcp
         skey = (getattr(self.cp, "ht_mixed", False),
                 tuple((int(t.cblk_style), bool(t.ht), int(t.qmfbid))
@@ -644,14 +640,9 @@ class TileCompressor:
             return cached[1]
         ht_mixed = skey[0]
         band_ids: dict = {}
-        band_keys: list = []
-        band_stride: list = []
+        band_shape: dict = {}
         band_delta: list = []
-        hw: list = []
-        meta: list = []
-        flags: list = []
-        coff: list = []
-        caps: list = []
+        rows: list = []
         cblks: list = []
         gmap: dict = {}
         for tc in self.tile.comps:
@@ -665,76 +656,42 @@ class TileCompressor:
                 for prc in res.precincts:
                     for pband in prc.pbands:
                         orient = pband.band_orient
-                        bkey = (tc.compno, res.resno, orient)
-                        bid = band_ids.get(bkey)
-                        if bid is None:
-                            bid = band_ids[bkey] = len(band_keys)
-                            band_keys.append(bkey)
-                            band_stride.append(max(brect[orient].w, 1))
-                            band_delta.append(
-                                0.0 if reversible else bmeta[orient][1])
                         r = brect[orient]
                         mb = bmeta[orient][0]
-                        use_ht = tccp.ht and not (
-                            ht_mixed and res.resno == 0)
+                        bkey = (tc.compno, res.resno, orient)
+                        if bkey not in band_ids:
+                            band_ids[bkey] = len(band_ids)
+                            band_shape[bkey] = (r.h, r.w)
+                            band_delta.append(
+                                0.0 if reversible else bmeta[orient][1])
+                        bid = band_ids[bkey]
+                        use_ht = int(tccp.ht and not (
+                            ht_mixed and res.resno == 0))
                         for cblk in pband.cblks:
-                            gmap[id(cblk)] = len(flags)
+                            gmap[id(cblk)] = len(rows)
                             cblks.append(cblk)
                             cr = cblk.rect
-                            if cr.is_empty():
-                                # never coded: zb must come out 0 like the
-                                # scrubbed default, so mb is recorded as 0
-                                hw.extend((0, 0))
-                                coff.append(0)
-                                caps.append(0)
-                                meta.extend((orient, style, 0, bid))
-                            else:
-                                hw.extend((cr.h, cr.w))
-                                coff.append((cr.y0 - r.y0) * r.w
-                                            + (cr.x0 - r.x0))
-                                # output caps: the t1/native.py formulas
-                                caps.append(
-                                    max(4096, cr.h * cr.w * 5 + 2048)
-                                    if use_ht else
-                                    max(4096,
-                                        cr.h * cr.w * max(4, mb) // 2
-                                        + 2048))
-                                meta.extend((orient, style, mb, bid))
-                            flags.append(1 if use_ht else 0)
-        ncb = len(flags)
-        caps_a = np.asarray(caps, np.int32)
-        offs = np.concatenate(
-            ([0], np.cumsum(caps_a, dtype=np.int64)[:-1])) if ncb else \
-            np.zeros(0, np.int64)
-        meta_a = np.asarray(meta, np.int32)
-        if ncb:
-            m4 = meta_a.reshape(-1, 4)
-            mb_g = m4[:, 2].copy()
-            bid_g = m4[:, 3].copy()
-        else:
-            mb_g = np.zeros(0, np.int32)
-            bid_g = np.zeros(0, np.int32)
-        statics = (ncb, np.asarray(hw, np.int32), meta_a,
-                   np.asarray(flags, np.int32),
-                   np.asarray(coff, np.int64), band_keys,
-                   np.asarray(band_stride, np.int32),
-                   np.asarray(band_delta, np.float32),
-                   caps_a, offs, int(caps_a.sum(dtype=np.int64)),
-                   mb_g, np.asarray(flags, np.int32), gmap, cblks, bid_g)
+                            # never coded: zb must come out 0 like the
+                            # scrubbed default, so mb is recorded as 0
+                            rows.append(
+                                (0, 0, orient, style, 0, bid, use_ht, 0)
+                                if cr.is_empty() else
+                                (cr.h, cr.w, orient, style, mb, bid, use_ht,
+                                 (cr.y0 - r.y0) * r.w + (cr.x0 - r.x0)))
+        table = tile_batch.BlockTable.from_rows(
+            rows, list(band_ids), list(band_shape.values()), np.int64,
+            np.asarray(band_delta, np.float32))
+        statics = (table, cblks, gmap)
         self.tile._t1enc_cache = (skey, statics)
         return statics
 
     def _flat_tile_encode(self):
-        """The card route of a whole tile as flat arrays: (HTEncodeTile or
-        MQEncodeTile, statics), or None where the tile keeps the
-        per-codeblock route.  It takes a tile whose components are all HT
-        (not ht_mixed) or all MQ, with no ROI and no -q target, whose bands
-        are int32 tensors on the device; the caller has checked that no
-        distortion is tracked and no rate quota set.  Per call the
-        descriptor rows are one array expression over the cached statics
-        and the bands' addresses; the blocks the native coder takes (odd HT
-        sizes, numbps bounds over the device's, MQ styles other than NONE
-        and LAZY) come to the host a band at a time, as jobs."""
+        """The card route of a whole tile as one flat batch
+        (t1/tile_batch.py encode_tile) and the statics it was built from,
+        or None where the tile keeps the per-codeblock route: its
+        components are not all HT (not ht_mixed) or all MQ, it has an ROI
+        or a -q target, or encode_tile refuses its bands.  The caller has
+        checked that no distortion is tracked and no rate quota set."""
         tccps = self.tcp.tccps
         ht = all(t.ht for t in tccps)
         if (self.backend != "device" or self.device is None
@@ -743,134 +700,27 @@ class TileCompressor:
                 or any(t.roi_shift for t in tccps)
                 or (not ht and any(t.ht for t in tccps))):
             return None
-        st = self._t1enc_statics()
-        fl = self._flat_tile_statics(st)
-        if fl is None:
-            return None
-        band_keys = st[5]
-        dev = _resolved(self.device)
-        bands: list = [None] * len(band_keys)
-        base = np.zeros(len(band_keys), np.int64)
-        stride = np.zeros(len(band_keys), np.int64)
-        for i in fl["used"]:
-            compno, resno, orient = band_keys[i]
+        table, cblks, gmap = self._t1enc_statics()
+        bands = []
+        for compno, resno, orient in table.band_keys:
             data = self.tile.comps[compno].data
-            t = data.get((resno, orient)) if data is not None else None
-            if (not isinstance(t, torch.Tensor) or t.device != dev
-                    or t.dtype != torch.int32 or t.dim() != 2
-                    or t.shape[1] != st[6][i]
-                    or (t.shape[1] > 1 and t.stride(1) != 1)):
-                return None
-            bands[i] = t
-            base[i] = t.data_ptr()
-            stride[i] = t.stride(0)
-        blk = fl["blk"]
-        b = blk[:, 0]
-        addr = base[b] + (blk[:, 1] * stride[b] + blk[:, 2]) * 4
-        if ht:
-            desc = np.empty((len(blk), 4), np.int64)
-            desc[:, 2:] = blk[:, 3:]
-        else:
-            desc = fl["mq_desc"].copy()
-        desc[:, 0] = addr
-        desc[:, 1] = stride[b]
-        host = []
-        if len(fl["host"]):
-            on_host: dict = {}
-            for bi, y, x, h, w, orient, style, mb in fl["host"].tolist():
-                a = on_host.get(bi)
-                if a is None:
-                    a = on_host[bi] = bands[bi].cpu().numpy()
-                host.append(t1_backend.EncodeJob(
-                    a[y:y + h, x:x + w], orient, CblkStyle(style), ht=ht,
-                    need_dist=False, numbps_bound=mb))
-        kind = t1_backend.HTEncodeTile if ht else t1_backend.MQEncodeTile
-        return kind(bands, blk, desc, host), (st, fl)
-
-    def _flat_tile_statics(self, st):
-        """What _flat_tile_encode and _ingest_flat_tile read of the tile's
-        encode statics, cached on the tile beside them: the device blocks
-        (band id, row and column in the band, h, w) and, for MQ, their
-        grk_mq_encode rows less the addresses; the host blocks (the same
-        with orient, style and mb), the bands either reads, the global
-        indices of both in the batch's order."""
-        cached = getattr(self.tile, "_flat_tile_cache", None)
-        if cached is not None and cached[0] is st:
-            return cached[1]
-        ncb, hw, meta, flags, coff, band_keys, bstride = st[:7]
-        if ncb == 0:
-            return None
-        from ..ops import ht_encode as dht
-        from ..ops import mq_encode as dmq
-        from ..ops.mq_tables import out_capacity
-
-        hw = hw.reshape(-1, 2).astype(np.int64)
-        m4 = meta.reshape(-1, 4).astype(np.int64)
-        h, w, bid, mb = hw[:, 0], hw[:, 1], m4[:, 3], m4[:, 2]
-        orient, style = m4[:, 0], m4[:, 1]
-        bw = bstride.astype(np.int64)[bid]
-        coded = (h > 0) & (w > 0)
-        isht = flags.astype(bool)
-        on_dev = coded & np.where(
-            isht, (h % 2 == 0) & (w % 2 == 0) & (mb <= dht.MAX_NUMBPS_DEVICE),
-            ((style == CblkStyle.NONE) | (style == CblkStyle.LAZY))
-            & (mb <= dmq.MAX_NUMBPS_DEVICE))
-        dev_g = np.flatnonzero(on_dev)
-        host_g = np.flatnonzero(coded & ~on_dev)
-        ht_g = dev_g[isht[dev_g]]
-        dht.check_shapes(h[ht_g], w[ht_g])
-        cols = np.stack([bid, coff // bw, coff % bw, h, w, orient, style,
-                         mb], 1)
-        fl = {"blk": np.ascontiguousarray(cols[dev_g, :5]),
-              "host": cols[host_g],
-              "used": np.unique(bid[coded]).tolist(),
-              "order": np.concatenate([dev_g, host_g])}
-        if not isht[dev_g].any():
-            # grk_mq_encode's rows: orient, lazy flag, no distortions, and
-            # each block's slot sized by its band's M_b
-            desc = np.zeros((len(dev_g), len(dmq.DESC)), np.int64)
-            desc[:, 2:4] = hw[dev_g]
-            desc[:, 4] = orient[dev_g]
-            desc[:, 5] = style[dev_g] == CblkStyle.LAZY
-            desc[:, 8] = out_capacity(h[dev_g], w[dev_g], mb[dev_g])
-            desc[:, 7] = np.cumsum(desc[:, 8]) - desc[:, 8]
-            fl["mq_desc"] = desc
-        self.tile._flat_tile_cache = (st, fl)
-        return fl
+            bands.append(data.get((resno, orient)) if data is not None
+                         else None)
+        t = tile_batch.encode_tile(table, bands, self.device)
+        return None if t is None else (t, (table, cblks, gmap))
 
     def _ingest_flat_tile(self, t, statics) -> None:
         """A flat tile's results into the whole-tile encode arrays
         (_EncSeq) that _assign_layers_flat and _write_packets_seq read, as
-        the native whole-tile encode leaves them: for HT one cleanup pass a
-        coded block, its length the pass's rate; for MQ 3 numbps - 2
-        passes and their rates."""
-        st, fl = statics
-        ncb, mb_g, isht_g, gmap, cblks = st[0], st[11], st[12], st[13], \
-            st[14]
-        order = fl["order"]
-        offs = np.zeros(ncb, np.int64)
-        lens = np.zeros(ncb, np.int32)
-        numbps = np.zeros(ncb, np.int32)
-        offs[order] = t.offs
-        lens[order] = t.lens
-        numbps[order] = t.numbps
-        mq = isinstance(t, t1_backend.MQEncodeTile)
-        if mq:
-            npasses = np.where(numbps > 0, 3 * numbps - 2, 0).astype(
-                np.int32)
-            rates = np.zeros((ncb, t.rates.shape[1]), np.int32)
-            rates[order] = t.rates
-        for g in np.flatnonzero(numbps > mb_g).tolist():
-            log.warning("codeblock numbps %d exceeds band M_b %d",
-                        numbps[g], mb_g[g])
-            numbps[g] = mb_g[g]
-        if not mq:
-            npasses = (numbps > 0).astype(np.int32)
-            rates = lens.reshape(ncb, 1)
+        the native whole-tile encode leaves them."""
+        table, cblks, gmap = statics
+        offs, lens, numbps, npasses, rates = tile_batch.encode_results(
+            table, t)
         self._enc_seq = _EncSeq(
             arena=t.data, offs=offs, lens=lens, numbps=numbps,
-            npasses=npasses, zb=mb_g - numbps, isht=isht_g, rates=rates,
-            stride=rates.shape[1], gmap=gmap, cblks=cblks, ncb=ncb)
+            npasses=npasses, zb=table.mb - numbps, isht=table.flags,
+            rates=rates, stride=rates.shape[1], gmap=gmap, cblks=cblks,
+            ncb=len(table))
 
     def _run_t1_tile_native_enc(self, need_dist: bool = False) -> bool:
         """Whole-tile native Tier-1 encode: every codeblock coded from
@@ -880,11 +730,12 @@ class TileCompressor:
         objects.  With need_dist the call also returns the PCRD feed
         (per-block e0 + convex hulls) for the flat assign_layers path."""
         nat = t2._native
-        (ncb, hw, meta, flags, coff, band_keys, bstride, bdelta, caps,
-         offs, total_cap, mb_g, isht_g, gmap, cblks,
-         bid_g) = self._t1enc_statics()
+        table, cblks, gmap = self._t1enc_statics()
+        ncb = len(table)
         if ncb == 0:
             return False
+        band_keys, bdelta = table.band_keys, table.band_delta
+        bstride = table.band_w.astype(np.int32)
         band_base = np.zeros(len(band_keys), np.uint64)
         for i, (compno, resno, orient) in enumerate(band_keys):
             data = self.tile.comps[compno].data
@@ -901,8 +752,8 @@ class TileCompressor:
                 band_base[i] = arr.__array_interface__["data"][0]
         tl = _ENC_TL
         arena = getattr(tl, "arena", None)
-        if arena is None or arena.nbytes < total_cap:
-            arena = tl.arena = np.empty(max(total_cap, 1), np.uint8)
+        if arena is None or arena.nbytes < table.total_cap:
+            arena = tl.arena = np.empty(max(table.total_cap, 1), np.uint8)
         rates = getattr(tl, "rates", None)
         if rates is None or rates.shape[0] < ncb:
             rates = tl.rates = np.empty((ncb, _MAX_PASSES), np.int32)
@@ -921,17 +772,17 @@ class TileCompressor:
         out_numbps = np.empty(ncb, np.int32)
         out_npasses = np.empty(ncb, np.int32)
         rc = nat.encode_tile(
-            ncb, hw, meta, flags, coff, band_base, bstride, bdelta,
-            arena, offs, caps, out_lens, out_numbps, out_npasses,
-            rates, _MAX_PASSES, getattr(self, "num_threads", 0),
-            dist=dist)
+            ncb, table.hw, table.meta, table.flags, table.off, band_base,
+            bstride, bdelta, arena, table.slot_off, table.caps, out_lens,
+            out_numbps, out_npasses, rates, _MAX_PASSES,
+            getattr(self, "num_threads", 0), dist=dist)
         if rc < 0:
             return False
-        zb = mb_g - out_numbps
-        es = _EncSeq(arena=arena, offs=offs, lens=out_lens,
-                     numbps=out_numbps, npasses=out_npasses, zb=zb,
-                     isht=isht_g, rates=rates[:ncb], stride=_MAX_PASSES,
-                     gmap=gmap, cblks=cblks, ncb=ncb)
+        es = _EncSeq(arena=arena, offs=table.slot_off, lens=out_lens,
+                     numbps=out_numbps, npasses=out_npasses,
+                     zb=table.mb - out_numbps, isht=table.flags,
+                     rates=rates[:ncb], stride=_MAX_PASSES, gmap=gmap,
+                     cblks=cblks, ncb=ncb)
         if need_dist:
             es.e0 = tl.e0[:ncb]
             es.hull_pass = tl.hull_pass[:ncb]
@@ -957,7 +808,7 @@ class TileCompressor:
                         and compno < len(self.mct_norms):
                     mctw = float(self.mct_norms[compno])
                 wb[i] = (delta * norm * mctw) ** 2
-            es.weights = wb[bid_g]
+            es.weights = wb[table.band]
         self._enc_seq = es
         return True
 
@@ -1942,14 +1793,14 @@ def _tcp_device_key(tcp) -> tuple:
             tcp.mct, tuple((ss.expn, ss.mant) for ss in t0.stepsizes))
 
 
-def _uniform_batch(tiles, eligible) -> bool:
+def _uniform_batch(tiles, decode: bool = False) -> bool:
     """Can these tiles go through one batched pipeline call: all eligible,
     one tile shape, one set of coding parameters (the batch applies the
     FIRST tile's; per-tile COD/QCD overrides drop to the per-tile path)."""
     first = tiles[0]
     shape = first.tile.comps[0].rect
     key = _tcp_device_key(first.tcp)
-    return all(eligible(t)
+    return all(_device_eligible(t, decode)
                and t.tile.comps[0].rect.w == shape.w
                and t.tile.comps[0].rect.h == shape.h
                and _tcp_device_key(t.tcp) == key for t in tiles)
@@ -2033,7 +1884,7 @@ def run_transforms_device_batched(tcs: list[TileCompressor],
     sp_transform_ok refuses returns False (the per-tile path)."""
     sp = 1 if mesh is None else pmesh.sp_size(mesh)
     if len(tcs) < (1 if sp > 1 else 2) \
-            or not _uniform_batch(tcs, TileCompressor.device_eligible):
+            or not _uniform_batch(tcs):
         return False
     if mesh is not None and not _sp_fits(mesh, tcs):
         return False
@@ -2089,7 +1940,7 @@ def reconstruct_device_batched(tds: list["TileDecompressor"], mesh=None):
     {id(td): planes}, or None if the batch is not eligible."""
     sp = 1 if mesh is None else pmesh.sp_size(mesh)
     if len(tds) < (1 if sp > 1 else 2) \
-            or not _uniform_batch(tds, TileDecompressor._device_eligible):
+            or not _uniform_batch(tds, decode=True):
         return None
     if mesh is not None and not _sp_fits(mesh, tds):
         return None
@@ -2316,16 +2167,13 @@ class TileDecompressor:
         base_a = np.empty(npk, np.int32)
         base = 0
         ht_mixed = skey[0]
-        # per-codeblock statics for grk_t1_decode_tile, built alongside
-        # (same global-g order): h/w, orient/style/mb/band_id, flags,
-        # dest offset in the (window-less) band array
+        # the tile's decode BlockTable (t1/tile_batch.py), for
+        # grk_t1_decode_tile and the flat route, built alongside (same
+        # global-g order): h/w, orient/style/mb/band_id, flags, dest
+        # offset in the (window-less) band array
         band_ids: dict = {}
-        band_keys: list = []
-        band_shapes: list = []
-        t_hw: list = []
-        t_meta: list = []
-        t_flags: list = []
-        t_off: list = []
+        band_shape: dict = {}
+        rows: list = []
         for n, pc in enumerate(order):
             tc = self.tile.comps[pc.compno]
             tccp = self.tcp.tccps[pc.compno]
@@ -2350,20 +2198,15 @@ class TileDecompressor:
                 for i, cblk in enumerate(h.cblks):
                     bi = h.cblk_band[i]
                     orient = prc.pbands[bi].band_orient
-                    bkey = (pc.compno, pc.resno, orient)
-                    bid = band_ids.get(bkey)
-                    if bid is None:
-                        bid = band_ids[bkey] = len(band_keys)
-                        band_keys.append(bkey)
-                        r = brect[orient]
-                        band_shapes.append((r.h, r.w))
                     r = brect[orient]
-                    t_hw.append(cblk.rect.h)
-                    t_hw.append(cblk.rect.w)
-                    t_meta.extend((orient, style, mbl[bi], bid))
-                    t_flags.append(flags)
-                    t_off.append((cblk.rect.y0 - r.y0) * r.w +
-                                 (cblk.rect.x0 - r.x0))
+                    bkey = (pc.compno, pc.resno, orient)
+                    if bkey not in band_ids:
+                        band_ids[bkey] = len(band_ids)
+                        band_shape[bkey] = (r.h, r.w)
+                    cr = cblk.rect
+                    rows.append((cr.h, cr.w, orient, style, mbl[bi],
+                                 band_ids[bkey], flags,
+                                 (cr.y0 - r.y0) * r.w + (cr.x0 - r.x0)))
                 base += h.ncb
             b, h, mb, _mx = ent
             prc_a[n] = h.ptr
@@ -2372,13 +2215,10 @@ class TileDecompressor:
             mix_a[n] = 1 if (tccp.ht and ht_mixed) else 0
             mb_a[n] = mb.__array_interface__["data"][0]
             base_a[n] = b
-        t1_statics = (np.asarray(t_hw, np.int32),
-                      np.asarray(t_meta, np.int32),
-                      np.asarray(t_flags, np.int32),
-                      np.asarray(t_off, np.int32),
-                      band_keys, band_shapes)
+        table = tile_batch.BlockTable.from_rows(
+            rows, list(band_ids), list(band_shape.values()), np.int32)
         state = (prc_a, lay_a, sty_a, mix_a, mb_a, base_a, max(base, 1),
-                 cblk_by_g, handles, t1_statics)
+                 cblk_by_g, handles, table)
         # keep the mb arrays alive alongside the pointers in mb_a
         self.tile._t2_seq_cache = (skey, order, state,
                                    [e[2] for e in handles_by_prc.values()])
@@ -2399,7 +2239,7 @@ class TileDecompressor:
 
         nat = t2._native
         (prc_a, lay_a, sty_a, mix_a, mb_a, base_a, ncb_total, cblk_by_g,
-         handles, t1_statics) = self._seq_state(order, nat)
+         handles, table) = self._seq_state(order, nat)
         npk = len(order)
         g_zb = np.zeros(ncb_total, np.int32)
         g_isht = np.zeros(ncb_total, np.int32)
@@ -2429,8 +2269,8 @@ class TileDecompressor:
         # run_t1's whole-tile paths consume these records (plus the stream
         # bytes) instead of re-walking the codeblock objects; the
         # per-codeblock route mirrors them first (_mirror_seq)
-        self._seq_result = (recs, data, g_zb, g_isht, ncb_total,
-                            t1_statics, cblk_by_g)
+        self._seq_result = (recs, data, g_zb, g_isht, ncb_total, table,
+                            cblk_by_g)
         self._seq_mirror = (handles, g_newly)
         return True
 
@@ -2613,168 +2453,52 @@ class TileDecompressor:
                 self._band_arrays, flat.split(sizes), shapes)}
 
     def _flat_tile_decode(self):
-        """The card route of a whole tile as flat arrays: (HTDecodeTile or
-        MQDecodeTile, keys and rects of its host jobs), or None where the
-        tile keeps the per-codeblock route.  It takes a tile of
-        `_device_eligible` whose components are all HT (not ht_mixed) or
-        all MQ, whose packets the sequence decode read (_seq_result) into
-        chunk records that lie inside the stream; `_dev_bands` must be
-        allocated.  The descriptor rows come from the chunk records and the
-        cached statics in array expressions, the bytes stay where they lie
-        in the tile's stream, and only the blocks the native coder takes
-        become jobs, decoded into the host band arrays."""
+        """The card route of a `_card_tile` as one flat batch
+        (t1/tile_batch.py decode_tile) and the keys and rects of its host
+        jobs, decoded into the host band arrays; or None where the tile
+        keeps the per-codeblock route: its components are not all HT (not
+        ht_mixed) or all MQ in one layer, the sequence decode did not run
+        (_seq_result) or its band arrays lack the table's shapes."""
         seq = getattr(self, "_seq_result", None)
         tccps = self.tcp.tccps
         ht = all(t.ht for t in tccps)
         if (seq is None or getattr(self.cp, "ht_mixed", False)
-                or (not ht and any(t.ht for t in tccps))):
+                or (not ht and (any(t.ht for t in tccps)
+                                or self.tcp.numlayers != 1))):
             return None
-        recs, data, _, _, ncb, t1_statics, _ = seq
-        fl = self._tile_dec_statics(t1_statics, ncb)
-        if fl is None:
+        recs, data, g_zb, _, _, table, cblk_by_g = seq
+        arrs = self._band_arrays
+        if any(arrs.get(k) is None or arrs[k].shape != shape
+               for k, shape in zip(table.band_keys, table.band_shape)):
             return None
-        r = recs.reshape(-1, 4).astype(np.int64)
-        if len(r) and (r[:, 0].min() < 0 or r[:, 0].max() >= ncb
-                       or r[:, 2:].min() < 0
-                       or (r[:, 2] + r[:, 3]).max() > len(data)):
-            return None
-        bands = [self._dev_bands[k] for k in t1_statics[4]]
-        got = (self._ht_rows if ht else self._mq_rows)(seq, fl, r, bands)
+        got = tile_batch.decode_tile(
+            table, recs, data, g_zb,
+            [self._dev_bands[k] for k in table.band_keys], self.device)
         if got is None:
             return None
-        t, meta = got
-        ptr = np.fromiter((b.data_ptr() for b in bands), np.int64,
-                          len(bands))
-        b = t.blk[:, 0]
-        t.desc[:, 0] = ptr[b] + (t.blk[:, 1] * fl["bw"][b]
-                                 + t.blk[:, 2]) * 4
-        t.desc[:, 1] = fl["bw"][b]
-        return t, meta
-
-    def _ht_rows(self, seq, fl, r, bands):
-        """_flat_tile_decode's HT half, where no block has more than one
-        chunk: the HTDecodeTile with its device rows' columns 2 to 5 (h,
-        w, segment offset and length) and host jobs (odd sizes), and the
-        host jobs' keys and rects."""
-        _, data, g_zb, _, ncb, t1_statics, cblk_by_g = seq
-        g = r[:, 0]
-        if len(g) and np.bincount(g, minlength=ncb).max() > 1:
-            return None
-        r = r[(r[:, 1] > 0) & fl["coded"][g]]
-        on_dev = fl["even"][r[:, 0]]
-        rd = r[on_dev]
-        blk = fl["blk"][rd[:, 0]]
-        desc = np.empty((len(rd), 8), np.int64)
-        desc[:, 2:4] = blk[:, 3:5]
-        desc[:, 4:6] = rd[:, 2:4]
-        band_keys = t1_statics[4]
-        host, meta = [], []
-        mv = memoryview(data)
-        for gg, np_, off, ln in r[~on_dev].tolist():
-            bi, y, x, h, w, orient, style, mb = fl["cols"][gg].tolist()
-            key = band_keys[bi]
-            job = t1_backend.DecodeJob(
-                mv[off:off + ln], [ln], np_, mb - int(g_zb[gg]), h, w,
-                orient, style, ht=True)
-            job.out_dest = self._band_arrays[key][y:y + h, x:x + w]
-            host.append(job)
-            meta.append((key, cblk_by_g[gg].rect))
-        return t1_backend.HTDecodeTile(data, desc, bands, blk, host), meta
-
-    def _mq_rows(self, seq, fl, r, bands):
-        """_flat_tile_decode's MQ half, for one layer, where each block's
-        chunks follow one another in the stream: the MQDecodeTile with its
-        device rows (ops/mq_decode.py flat_layout), and host jobs for the
-        blocks the per-codeblock route's router leaves on the host (styles
-        other than NONE and LAZY, numbps outside 0 to 26, shapes with fewer
-        than MQ_DECODE_MIN_GROUP blocks in the tile); and the host jobs'
-        keys and rects."""
-        from ..ops import mq_decode as dmqd
-        from ..ops.mq_tables import MAX_NUMBPS_DEVICE
-
-        _, data, g_zb, _, ncb, t1_statics, cblk_by_g = seq
-        if self.tcp.numlayers != 1:
-            return None
+        t, host = got
+        # each host block's chunks, in arrival order
+        r = recs.reshape(-1, 4)
         r = r[np.argsort(r[:, 0], kind="stable")]
-        g, rp, ro, rl = r.T
-        same = g[1:] == g[:-1]
-        if (r[:, 1].min(initial=0) < 0
-                or (ro[1:] != ro[:-1] + rl[:-1])[same].any()):
-            return None
-        cols = fl["cols"]
-        h, w, orient, style = cols[:, 3], cols[:, 4], cols[:, 5], cols[:, 6]
-        nb = cols[:, 7] - g_zb
-        live = (np.bincount(g, weights=rp, minlength=ncb) > 0) & fl["coded"]
-        ok = live & ((style == CblkStyle.NONE) | (style == CblkStyle.LAZY)) \
-            & (nb >= 0) & (nb <= MAX_NUMBPS_DEVICE)
-        ok_g = np.flatnonzero(ok)
-        _, grp, cnt = np.unique(h[ok_g] * 8192 + w[ok_g],
-                                return_inverse=True, return_counts=True)
-        idx = ok_g[cnt[grp] >= t1_backend.MQ_DECODE_MIN_GROUP]
-        dev = np.zeros(ncb, bool)
-        dev[idx] = True
-        pos = np.cumsum(dev) - 1
-        rd = dev[g]
-        desc, segs, pmap = dmqd.flat_layout(
-            nb[idx], (style[idx] == CblkStyle.LAZY).astype(np.int64),
-            h[idx], w[idx], pos[g[rd]], rp[rd], rl[rd])
-        desc[:, 4] = orient[idx]
-        desc[:, 7] = ro[np.searchsorted(g, idx)]
-        band_keys = t1_statics[4]
-        host, meta = [], []
+        lo = np.searchsorted(r[:, 0], host).tolist()
+        hi = np.searchsorted(r[:, 0], host, side="right").tolist()
         mv = memoryview(data)
-        lo = np.searchsorted(g, np.arange(ncb))
-        hi = np.searchsorted(g, np.arange(ncb), side="right")
-        for gg in np.flatnonzero(live & ~dev).tolist():
-            bi, y, x, bh, bw, o, st, mb = cols[gg].tolist()
-            part = r[lo[gg]:hi[gg]].tolist()
-            got = t2.collect_seg_lengths(SimpleNamespace(
-                total_passes=sum(p[1] for p in part), numbps=int(nb[gg]),
+        meta = []
+        for gg, first, end in zip(host.tolist(), lo, hi):
+            bi, y, x, h, w, orient, sty, mb = table.cols[gg].tolist()
+            part = r[first:end].tolist()
+            nb = mb - int(g_zb[gg])
+            seg = t2.collect_seg_lengths(SimpleNamespace(
+                total_passes=sum(p[1] for p in part), numbps=nb,
                 seg_data=[mv[p[2]:p[2] + p[3]] for p in part],
-                seg_passes=[p[1] for p in part]), CblkStyle(st))
-            job = t1_backend.DecodeJob(*got, int(nb[gg]), bh, bw, o,
-                                       CblkStyle(st))
-            key = band_keys[bi]
-            job.out_dest = self._band_arrays[key][y:y + bh, x:x + bw]
-            host.append(job)
+                seg_passes=[p[1] for p in part]), CblkStyle(sty))
+            job = t1_backend.DecodeJob(*seg, nb, h, w, orient,
+                                       CblkStyle(sty), ht=ht)
+            key = table.band_keys[bi]
+            job.out_dest = arrs[key][y:y + h, x:x + w]
+            t.host.append(job)
             meta.append((key, cblk_by_g[gg].rect))
-        return t1_backend.MQDecodeTile(data, desc, segs, pmap, bands,
-                                       fl["blk"][idx], host), meta
-
-    def _tile_dec_statics(self, t1_statics, ncb: int):
-        """What _flat_tile_decode reads of the sequence decode's Tier-1
-        statics, cached on the tile beside them: per global block its band
-        id, row and column in the band, h, w, orient, style and mb, whether
-        it is coded at all and whether both its sides are even, and the
-        bands' widths; None where the band arrays are not the statics'
-        shapes."""
-        st_hw, st_meta, st_flags, st_off, band_keys, band_shapes = \
-            t1_statics
-        if len(st_off) != ncb or any(
-                self._band_arrays.get(k) is None
-                or self._band_arrays[k].shape != shape
-                for k, shape in zip(band_keys, band_shapes)):
-            return None
-        cached = getattr(self.tile, "_flat_tile_dec_cache", None)
-        if cached is not None and cached[0] is t1_statics:
-            return cached[1]
-        from ..ops import ht_encode as dht
-
-        hw = st_hw.reshape(-1, 2).astype(np.int64)
-        m4 = st_meta.reshape(-1, 4).astype(np.int64)
-        h, w, bid = hw[:, 0], hw[:, 1], m4[:, 3]
-        bw = np.asarray([max(s[1], 1) for s in band_shapes], np.int64)
-        off = st_off.astype(np.int64)
-        coded = (h > 0) & (w > 0)
-        even = coded & (h % 2 == 0) & (w % 2 == 0)
-        ht = even & (st_flags & 1).astype(bool)
-        dht.check_shapes(h[ht], w[ht])
-        cols = np.stack([bid, off // bw[bid], off % bw[bid], h, w, m4[:, 0],
-                         m4[:, 1], m4[:, 2]], 1)
-        fl = {"cols": cols, "blk": np.ascontiguousarray(cols[:, :5]),
-              "coded": coded, "even": even, "bw": bw}
-        self.tile._flat_tile_dec_cache = (t1_statics, fl)
-        return fl
+        return t, meta
 
     def _ingest_decoded(self, jobs, meta) -> None:
         """The blocks the host coder decoded, into the band arrays (and
@@ -2835,15 +2559,14 @@ class TileDecompressor:
             return False  # blocks decode on the device
         if any(t.roi_shift for t in self.tcp.tccps):
             return False
-        recs, data, g_zb, g_isht, ncb_total, t1_statics, _ = seq
-        st_hw, st_meta, st_flags, st_off, band_keys, band_shapes = \
-            t1_statics
-        if len(st_flags) != ncb_total:
+        recs, data, g_zb, g_isht, ncb_total, table, _ = seq
+        if len(table) != ncb_total:
             return False
-        nb = len(band_keys)
+        nb = len(table.band_keys)
         band_base = np.empty(nb, np.uint64)
         band_stride = np.empty(nb, np.int32)
-        for i, (key, shape) in enumerate(zip(band_keys, band_shapes)):
+        for i, (key, shape) in enumerate(zip(table.band_keys,
+                                             table.band_shape)):
             arr = self._band_arrays.get(key)
             if arr is None or arr.shape != shape:
                 return False  # windowed/cropped alloc: fallback
@@ -2856,7 +2579,8 @@ class TileDecompressor:
         rc = nat._lib.grk_t1_decode_tile(
             addr(recs) if len(recs) else 0, len(recs) // 4,
             addr(dview), len(data), ncb_total,
-            addr(st_hw), addr(st_meta), addr(st_flags), addr(st_off),
+            addr(table.hw), addr(table.meta), addr(table.flags),
+            addr(table.off),
             addr(g_zb), addr(g_isht), addr(band_base), addr(band_stride),
             getattr(self, "num_threads", 0))
         return rc >= 0
@@ -2865,7 +2589,7 @@ class TileDecompressor:
         """Whether the device decoders write this tile's bands on the
         device (`_dev_bands`) and the synthesis takes them there."""
         return (self.backend == "device" and self.device is not None
-                and _card_t1(self.tcp) and self._device_eligible())
+                and _card_t1(self.tcp) and _device_eligible(self, True))
 
     def _alloc_band_arrays(self) -> None:
         """Zeroed host band arrays, each cropped to the decode window.  On
@@ -2902,37 +2626,13 @@ class TileDecompressor:
             return self._dev_bands[key]
         return torch.from_numpy(self._band_arrays[key]).to(self.device)
 
-    def _device_eligible(self) -> bool:
-        tile, tcp, image = self.tile, self.tcp, self.image
-        if self.reduce or self.window is not None:
-            return False
-        t0 = tcp.tccps[0]
-        nl = t0.numresolutions - 1
-        align = 1 << nl
-        for compno, tc in enumerate(tile.comps):
-            comp = image.comps[compno]
-            tccp = tcp.tccps[compno]
-            if comp.dx != 1 or comp.dy != 1:
-                return False
-            if (tccp.numresolutions != t0.numresolutions
-                    or tccp.qmfbid != t0.qmfbid
-                    or comp.prec != image.comps[0].prec
-                    or comp.sgnd != image.comps[0].sgnd
-                    or tccp.roi_shift):
-                return False
-            if tc.rect.x0 % align or tc.rect.y0 % align:
-                return False
-            if tc.rect != tile.comps[0].rect:
-                return False
-        return tcp.mct in (0, 1) and _uniform_quant(tcp)
-
     def reconstruct_device(self, defer: bool = False):
         """Device synthesis of this tile: per-component planes, or None if
         the tile is not eligible.  With defer=True the result is a
         DeferredPlanes whose synthesis and copy back are still in flight
         on the card, so the caller can run the NEXT tile's host entropy
         stages meanwhile (decode-side StripCache-overlap parity)."""
-        if self.device is None or not self._device_eligible():
+        if self.device is None or not _device_eligible(self, True):
             return None
         if defer:
             return _synthesise([self], defer=True)

@@ -696,8 +696,7 @@ def test_mq_flat_tiles_match_per_codeblock_route(gen, monkeypatch, style):
     blocks decode on the native coder inside the flat batch)."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, GrkImage
-    from grok_tpu_torch.t1 import backend
-    from grok_tpu_torch.tile import processor
+    from grok_tpu_torch.t1 import backend, tile_batch
 
     rng = np.random.default_rng(17)
     arr = rng.integers(0, 1 << 12, (256, 300))
@@ -720,10 +719,8 @@ def test_mq_flat_tiles_match_per_codeblock_route(gen, monkeypatch, style):
     assert moved["mq_decode_flat"] == moved["mq_decode_device"] > 0
     assert moved["mq_decode_host"] > 0
     assert np.array_equal(flat_out, arr)
-    monkeypatch.setattr(processor.TileCompressor, "_flat_tile_encode",
-                        lambda self: None)
-    monkeypatch.setattr(processor.TileDecompressor, "_mq_rows",
-                        lambda *a: None)
+    monkeypatch.setattr(tile_batch, "encode_tile", lambda *a: None)
+    monkeypatch.setattr(tile_batch, "decode_tile", lambda *a: None)
     per_block, out, moved_pb = run()
     assert moved_pb["mq_encode_flat"] == moved_pb["mq_decode_flat"] == 0
     assert per_block == flat

@@ -189,6 +189,40 @@ def _imported_packages(path):
             yield node.module.split(".")[0]
 
 
+def _imported_modules(path):
+    """Absolute names of what a port source imports, at any depth,
+    relative imports resolved: each module, and each name imported from
+    one as a submodule."""
+    pkg = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[:len(pkg) - node.level + 1] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            yield mod
+            yield from (f"{mod}.{a.name}" for a in node.names)
+
+
+def test_tier1_seam_points_one_way():
+    """The card's Tier-1 has one seam, tile -> t1 -> ops: the tile
+    processor imports no ops module but pipeline (its transforms), and no
+    module of t1/ imports anything of tile/."""
+    port = os.path.join(ROOT, "grok_tpu_torch")
+    ops = {m for m in _imported_modules(
+        os.path.join(port, "tile", "processor.py"))
+        if m.startswith("grok_tpu_torch.ops.")}
+    assert ops == {"grok_tpu_torch.ops.pipeline"}
+    t1 = os.path.join(port, "t1")
+    for f in sorted(os.listdir(t1)):
+        if f.endswith(".py"):
+            bad = [m for m in _imported_modules(os.path.join(t1, f))
+                   if m.split(".")[:2] == ["grok_tpu_torch", "tile"]]
+            assert not bad, (f, bad)
+
+
 def test_port_sources_do_not_import_jax():
     pkg = os.path.join(ROOT, "grok_tpu_torch")
     for dirpath, _, files in os.walk(pkg):

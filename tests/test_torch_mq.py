@@ -231,14 +231,40 @@ def test_padded_lengths_follow_the_reference():
 
 # ---------------------------------------------------------------- routers
 
-def test_mq_device_eligible_follows_reference():
-    for style in (CblkStyle.NONE, CblkStyle.LAZY, CblkStyle.TERMALL,
-                  CblkStyle.LAZY | CblkStyle.RESET, CblkStyle.VSC):
-        for nb in (0, 20, 21, 26, 27):
-            for dist in (False, True):
-                ok = style in (CblkStyle.NONE, CblkStyle.LAZY) and nb <= (
-                    20 if dist else 26)
-                assert t1_backend.mq_device_eligible(style, nb, dist) == ok
+@pytest.mark.parametrize("ht", [False, True], ids=["mq", "ht"])
+def test_mq_device_eligible_follows_reference(ht):
+    """t1_backend.on_card, the one placement rule, takes the blocks
+    grok_tpu's device routers take, block by block and as one array call:
+    MQ of style NONE or LAZY within numbps 26 (20 with distortions), on
+    decode in shape groups of 8 or more; HT with even sides and, on
+    encode, numbps within 25."""
+    grid = [(style, h, w, nb, dist)
+            for style in (CblkStyle.NONE, CblkStyle.LAZY, CblkStyle.TERMALL,
+                          CblkStyle.LAZY | CblkStyle.RESET, CblkStyle.VSC)
+            for h, w in ((64, 64), (63, 64), (64, 5))
+            for nb in (0, 20, 21, 25, 26, 27)
+            for dist in (False, True)]
+    want = [(h % 2 == 0 and w % 2 == 0 and nb <= 25) if ht else
+            (style in (CblkStyle.NONE, CblkStyle.LAZY)
+             and nb <= (20 if dist else 26))
+            for style, h, w, nb, dist in grid]
+    for (style, h, w, nb, dist), ok in zip(grid, want):
+        assert t1_backend.on_card(ht, h, w, int(style), nb,
+                                  need_dist=dist) == ok
+    style, h, w, nb, dist = (np.array([int(v) for v in c])
+                             for c in zip(*grid))
+    assert t1_backend.on_card(ht, h, w, style, nb,
+                              need_dist=dist).tolist() == want
+    # decode: the block's own numbps, no distortions; ten 16 x 16 blocks
+    # (one at numbps 27, one at -1), eight 8 x 8 (one TERMALL), one odd
+    h = np.array([16] * 10 + [8] * 8 + [5])
+    style = np.array([int(CblkStyle.LAZY)] * 18 + [0])
+    style[10] = int(CblkStyle.TERMALL)
+    nb = np.full(19, 3)
+    nb[:2] = 27, -1
+    got = t1_backend.on_card(ht, h, h, style, nb, decode=True).tolist()
+    assert got == ([True] * 18 + [False] if ht else
+                   [False] * 2 + [True] * 8 + [False] * 9)
 
 
 class _Routed:
@@ -375,7 +401,7 @@ def test_flat_regrouping_matches_per_codeblock_layout(rng, monkeypatch):
     orient, bytes, Lb, segment bounds and pass map read as `layout` gives
     them over the per-codeblock route's items for the same tile (blocks
     matched by where they land in the tile's device bands)."""
-    from grok_tpu_torch.tile import processor
+    from grok_tpu_torch.t1 import tile_batch
 
     arr = _lazy_depths(rng, 64, 64)
     data = grok_tpu_torch.compress(
@@ -398,8 +424,7 @@ def test_flat_regrouping_matches_per_codeblock_layout(rng, monkeypatch):
     monkeypatch.setattr(mq_decode, "decode_cblks_mq", per_block)
     want = grok_tpu_torch.decompress(data, device="cpu").to_array()
     (desc, stream, segs, pmap), outs = seen.pop("flat")
-    monkeypatch.setattr(processor.TileDecompressor, "_mq_rows",
-                        lambda *a: None)
+    monkeypatch.setattr(tile_batch, "decode_tile", lambda *a: None)
     got = grok_tpu_torch.decompress(data, device="cpu").to_array()
     assert np.array_equal(got, want) and np.array_equal(got, arr)
 
