@@ -1260,7 +1260,7 @@ def psnr(a: np.ndarray, b: np.ndarray, peak: int = 255) -> float:
 # ------------------------------------------------------------- codec cases
 
 def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
-               mq=None, rate=None):
+               mq=None, rate=None, quality=False):
     """Encode and decode `arr` through grok_tpu_torch on the card, with
     the entry points' defaults; check the bytes against the port's plain
     route (its twins on the CPU: on `arr`, or, with plain an array, on that
@@ -1272,6 +1272,9 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
     ht_mixed, every HT block coded on the card in a flat tile batch).
     With `rate` (lossy, layer_rates [rate]) the bytes are not held to the
     host route's and the decode not to the input: lossy_checks instead.
+    With `quality` (lossy, a layer_psnr target) the bytes are held to the
+    host route's, and the decode to the host route's decode of them
+    within 1 (quality_checks).
     Returns the launch counts and the encoded bytes."""
     import grok_tpu_torch
     from grok_tpu_torch import CompressParams, DecompressParams, GrkImage
@@ -1318,6 +1321,8 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
                                  f"{route} ({len(data)} vs {len(ref)} bytes)")
     if rate is not None:
         lossy_checks(name, arr, rate, data, out.to_array(), host)
+    elif quality:
+        quality_checks(name, arr, kw["layer_psnr"], out.to_array(), host)
     elif not np.array_equal(out.to_array(), arr.astype(np.int32)):
         raise AssertionError(f"case {name}: decode is not bit-exact")
     missing = [k for k in expect if counts[k] == 0]
@@ -1341,7 +1346,7 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
     same = (' and '.join(r for _, r in refs)
             or "plain route on the part coded on its own (above)")
     log(f"case {name}: {len(data)} bytes identical to the {same}, decode "
-        f"{'bit-exact' if rate is None else 'lossy (above)'}, launches "
+        f"{'lossy (above)' if rate or quality else 'bit-exact'}, launches "
         f"{counts}, host-path tiles {host_tiles}")
     log(f"case {name}: codeblocks through Tier-1 under backend=device: HT "
         f"encode {blocks['encode_device']} on the card, "
@@ -1353,7 +1358,8 @@ def codec_case(name, arr, kw, expect, counters, exact=None, plain=True,
         f"{blocks['mq_decode_host']} on the native coder; e0 summed on the "
         f"host for {blocks['e0_host']}; HT in flat tile batches: encode "
         f"{blocks['ht_encode_flat']}, decode {blocks['ht_decode_flat']}; MQ "
-        f"in flat tile batches: encode {blocks['mq_encode_flat']}, decode "
+        f"in flat tile batches: encode {blocks['mq_encode_flat']} (with "
+        f"distortions {blocks['mq_encode_flat_dist']}), decode "
         f"{blocks['mq_decode_flat']}")
 
     def encode(backend):
@@ -1430,6 +1436,27 @@ def lossy_checks(name, arr, rate, data, out, host):
         f"host route's ({len(host)} bytes); the card's decode of the host "
         f"route's codestream is {diff} off the host route's own decode, "
         f"{int(np.count_nonzero(card_of_host != host_out))} samples differ")
+
+
+def quality_checks(name, arr, targets, out, host):
+    """A quality case's decode check: the card's decode of the host
+    route's codestream (which the case holds the card's bytes to) within 1
+    of the host route's own decode.  Logs the PSNR of both beside the
+    layer_psnr targets."""
+    import grok_tpu_torch
+    from grok_tpu_torch import DecompressParams
+
+    host_out = grok_tpu_torch.decompress(
+        host, DecompressParams(backend="native")).to_array()
+    diff = int(np.abs(out.astype(np.int64) - host_out).max())
+    if diff > 1:
+        raise AssertionError(f"case {name}: the card's decode is {diff} "
+                             "off the host route's decode of the same "
+                             "codestream")
+    log(f"case {name}: {len(host)} bytes; PSNR card {psnr(arr, out):.4f} "
+        f"dB, host route {psnr(arr, host_out):.4f} dB, target {targets}; "
+        f"the card's decode is {diff} off the host route's, "
+        f"{int(np.count_nonzero(out != host_out))} samples differ")
 
 
 def turns(ref, port) -> tuple[float, float]:
@@ -2186,12 +2213,14 @@ def main() -> int:
     counts.update({k: counts_c[k] for k in mq})
     codec_case("c-layers 2048x2048 RGB 512^2 tiles MQ, layer_rates "
                "[40, 10, 1]", rgb_c, dict(kw_c, layer_rates=[40, 10, 1]),
-               transforms + mq, card_note, plain=False, mq=mq_c)
+               transforms + mq, card_note, plain=False,
+               mq=dict(mq_c, mq_encode_flat=3360, mq_encode_flat_dist=3360))
     phase("cases (a) to c-layers")
     # case (d), BASELINE config 2: one tile, four launches of each 9/7
     # level kernel (5 resolutions), one of each ICT kernel, one MQ launch
     # each way for its 3,072 codeblocks (1,024 a component, all within the
-    # rate-targeted router's numbps 20); its plain route on its first
+    # rate-targeted router's numbps 20; on encode one flat batch that
+    # tracks distortions, as c-layers' tiles); its plain route on its first
     # 512x512 part coded as an image of its own
     rgb_d = make_config2(2048, 2048)
     kw_d = dict(numresolution=5, irreversible=True, layer_rates=[20])
@@ -2201,10 +2230,21 @@ def main() -> int:
         exact=dict(dict.fromkeys(every, 0), fwd97_level=4, inv97_level=4,
                    ict_forward_shift=1, ict_inverse_unshift=1, mq_encode=1,
                    mq_decode=1),
-        mq=dict(mq_encode_device=3072, mq_encode_host=0))
+        mq=dict(mq_encode_device=3072, mq_encode_host=0,
+                mq_encode_flat=3072, mq_encode_flat_dist=3072))
     # the 9/7 and ICT kernels' launches are those of their own path
     counts.update({k: counts_d[k] for k in lossy})
-    phase("case (d)")
+    # case (d-q): case (d)'s frame to a PSNR target, which keeps the
+    # per-codeblock card route (a job a block, distortions tracked): its
+    # 3,072 blocks on the card, none in a flat batch, none on the native
+    # coder; its quality search decodes on its own, so no exact launches
+    codec_case(
+        "d-q config-2 2048x2048 RGB 9/7 + ICT, layer_psnr [40]", rgb_d,
+        dict(numresolution=5, irreversible=True, layer_psnr=[40]),
+        lossy + mq, card_note, plain=False, quality=True,
+        mq=dict(mq_encode_device=3072, mq_encode_host=0, mq_encode_flat=0,
+                mq_encode_flat_dist=0))
+    phase("cases (d) and (d-q)")
     mesh_phase(card_note, rgb_c, kw_c, data_c, rgb_d, kw_d, data_d, uhd,
                kw_b, data_b)
     phase("mesh")

@@ -23,8 +23,8 @@ largest block, `mq_tables.launch_smem`), then two copies back.  A tile's
 blocks can also go as flat arrays: `desc_args` takes the descriptor rows
 the caller built with numpy (`desc_rows`, then the addresses), and
 `finish_encode_flat` hands back the pool, the per-block results and the
-rates as arrays, with no per-block Python object (no distortions on that
-route).  On CPU
+rates as arrays, with the distortions where the rows ask for them, and no
+per-block Python object.  On CPU
 tensors it is the plain PyTorch twin `encode_cblks_mq_plain`, written
 after the reference's formulation so its stages can be held to the
 reference's:
@@ -276,24 +276,34 @@ def finish_encode(args) -> MQEncoded:
                      m[:, 4].astype(np.float64))
 
 
-def finish_encode_flat(args, extra: int = 0):
-    """finish_encode without the per-block bytes, for a batch that codes
-    no distortions: (the pool's used bytes, followed by `extra` bytes left
-    for the caller, as one uint8 array; meta (n, 6) int64, META's columns;
-    rates (n, MAX_PASSES) int32), after the checks.  The results and the
-    used count come back in one copy, the pool in another."""
-    _, _, packed, used, meta, rates = args[:6]
+def finish_encode_flat(args, extra: int = 0, need_dist: bool = False):
+    """finish_encode without the per-block bytes: (the pool's used bytes,
+    followed by `extra` bytes left for the caller, as one uint8 array;
+    meta (n, 6) int64, META's columns; rates (n, MAX_PASSES) int32; with
+    need_dist the cumulative distortions (n, MAX_PASSES) float64, else
+    None), after the checks.  e0 is META's `sumsq`.  The results, the
+    distortions and the used count come back in one copy, the pool in
+    another."""
+    _, _, packed, used, meta, rates, _, dists = args[:8]
     n = len(meta)
-    small = torch.cat([used, meta.reshape(-1),
-                       rates.view(torch.int64).reshape(-1)]).cpu().numpy()
-    m = small[1:1 + n * len(META)].reshape(n, len(META))
-    r = small[1 + n * len(META):].view(np.int32).reshape(n, MAX_PASSES)
+    parts = [used, meta.reshape(-1), rates.view(torch.int64).reshape(-1)]
+    if need_dist:
+        parts.append(dists.reshape(-1))
+    small = torch.cat(parts).cpu().numpy()
+    k = 1 + n * len(META)
+    m = small[1:k].reshape(n, len(META))
+    r = small[k:k + n * MAX_PASSES // 2].view(np.int32).reshape(
+        n, MAX_PASSES)
+    d = None
+    if need_dist:
+        d = small[k + n * MAX_PASSES // 2:].reshape(n, MAX_PASSES).astype(
+            np.float64)
     _raise_on(m[:, 3])
     used = int(small[0])
     data = np.empty(used + extra, np.uint8)
     if used:
         torch.from_numpy(data[:used]).copy_(packed[:used])
-    return data, m, r
+    return data, m, r, d
 
 
 def _raise_on(status) -> None:
@@ -781,23 +791,28 @@ def _assemble(nb, lazy, out, seg_end, tot, sec, raw_bits, raw_counts,
     return bytes(data), rates, np.asarray(tflags, np.uint8)
 
 
-def encode_plain_flat(blocks, orients, lazy, extra: int = 0):
-    """The twin's results, no distortions, as finish_encode_flat gives the
-    kernel's: every block's codeword in one uint8 array (with `extra`
-    bytes to spare after them), meta (n, 6) int64 (offset, length, numbps;
-    status 0) and rates (n, MAX_PASSES) int32."""
+def encode_plain_flat(blocks, orients, lazy, extra: int = 0,
+                      need_dist: bool = False):
+    """The twin's results as finish_encode_flat gives the kernel's: every
+    block's codeword in one uint8 array (with `extra` bytes to spare after
+    them), meta (n, 6) int64 (offset, length, numbps; status 0; sumsq),
+    rates (n, MAX_PASSES) int32 and, with need_dist, the distortions (n,
+    MAX_PASSES) float64 (else None)."""
     n = len(blocks)
     res = _encode_plain(list(blocks), _per_block(orients, n, "orient"),
-                        _per_block(lazy, n, "lazy flag"), [0] * n)
+                        _per_block(lazy, n, "lazy flag"),
+                        [int(need_dist)] * n)
     lens = np.fromiter(map(len, res.data), np.int64, n)
     meta = np.zeros((n, len(META)), np.int64)
     meta[:, 0] = np.cumsum(lens) - lens
     meta[:, 1] = lens
     meta[:, 2] = res.numbps
+    meta[:, 4] = res.e0
     used = int(lens.sum())
     data = np.empty(used + extra, np.uint8)
     data[:used] = np.frombuffer(b"".join(res.data), np.uint8)
-    return data, meta, res.rates.astype(np.int32)
+    return data, meta, res.rates.astype(np.int32), (
+        res.dists if need_dist else None)
 
 
 def _encode_plain(blocks, orients, lazy, need_dist) -> MQEncoded:

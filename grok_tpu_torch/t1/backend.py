@@ -95,13 +95,15 @@ class LazyPasses:
 # "mq_encode_passes" and "mq_decode_passes" sum the coding passes of the
 # "mq_encode_device" and "mq_decode_device" blocks (their chain lengths);
 # "mq_encode_flat" and "mq_decode_flat" count the MQ blocks of
-# "mq_encode_device" and "mq_decode_device" that came in a flat tile batch
+# "mq_encode_device" and "mq_decode_device" that came in a flat tile batch,
+# "mq_encode_flat_dist" those of "mq_encode_flat" whose batch tracked
+# distortions
 DEVICE_CODEBLOCKS: dict[str, int] = dict.fromkeys(
     ("encode_device", "encode_host", "decode_device", "decode_host",
      "mq_encode_device", "mq_encode_host", "mq_decode_device",
      "mq_decode_host", "e0_host", "ht_encode_flat", "ht_decode_flat",
      "mq_encode_passes", "mq_decode_passes", "mq_encode_flat",
-     "mq_decode_flat"), 0)
+     "mq_decode_flat", "mq_encode_flat_dist"), 0)
 
 
 @dataclass
@@ -194,11 +196,17 @@ class HTEncodeTile(_EncodeTile):
 
 @dataclass
 class MQEncodeTile(_EncodeTile):
-    """MQ blocks with no distortions tracked: `desc` grk_mq_encode's rows
-    (ops/mq_encode.py DESC: address, row stride, h, w, orient, lazy flag,
-    0, slot offset and size).  encode_batch also sets `rates` (n, stride)
-    int32, each block's cumulative pass rates, in the same order."""
+    """MQ blocks: `desc` grk_mq_encode's rows (ops/mq_encode.py DESC:
+    address, row stride, h, w, orient, lazy flag, need_dist, slot offset
+    and size), distortions tracked where `need_dist` (the host jobs' flag
+    too).  encode_batch also sets `rates` (n, stride) int32, each block's
+    cumulative pass rates, in the same order, and with need_dist `dists`
+    (n, stride) float64, their raw cumulative distortions, and `e0` (n,)
+    float64, each block's sum of squared magnitudes."""
+    need_dist: bool = False
     rates: np.ndarray | None = None
+    dists: np.ndarray | None = None
+    e0: np.ndarray | None = None
 
 
 @dataclass
@@ -585,7 +593,8 @@ def _encode_mq_tile(t: MQEncodeTile, backend: str, num_threads: int,
     """A flat MQ tile batch: one launch of the MQ encoder (the twin on
     the CPU) for the device blocks, the native coder for the host jobs
     while the card works, then one result array for both and the pass
-    rates of every block."""
+    rates of every block (with need_dist their distortions and e0 too,
+    in the same small copy)."""
     from ..ops import mq_encode as dmq
 
     n = len(t.blk)
@@ -595,30 +604,44 @@ def _encode_mq_tile(t: MQEncodeTile, backend: str, num_threads: int,
         dmq.launch_encode(args, device)
     if t.host:
         _BACKENDS[resolve(backend)][0](t.host, num_threads)
-    rates_h = [j.passes.rates for j in t.host]  # the native coder's
     lens_h = np.fromiter((len(j.data) for j in t.host), np.int64,
                          len(t.host))
     extra = int(lens_h.sum())
     if args is not None:
-        data, meta, rates = dmq.finish_encode_flat(args, extra)
+        data, meta, rates, dists = dmq.finish_encode_flat(args, extra,
+                                                          t.need_dist)
     elif n:
-        data, meta, rates = dmq.encode_plain_flat(
-            _views(t.bands, t.blk), t.desc[:, 4], t.desc[:, 5], extra)
+        data, meta, rates, dists = dmq.encode_plain_flat(
+            _views(t.bands, t.blk), t.desc[:, 4], t.desc[:, 5], extra,
+            t.need_dist)
     else:
         data, meta = np.empty(extra, np.uint8), np.zeros((0, 6), np.int64)
         rates = np.zeros((0, dmq.MAX_PASSES), np.int32)
+        dists = np.zeros((0, dmq.MAX_PASSES)) if t.need_dist else None
     _join_host(t, data, meta, extra, lens_h)
-    stride = max([rates.shape[1]] + [len(r) for r in rates_h])
-    t.rates = np.zeros((n + len(t.host), stride), np.int32)
-    t.rates[:n, :rates.shape[1]] = rates
-    for k, r in enumerate(rates_h):
-        t.rates[n + k, :len(r)] = r
+    t.rates = _rows(rates, [j.passes.rates for j in t.host], np.int32)
+    if t.need_dist:  # the native coder's distortions and e0
+        t.dists = _rows(dists, [j.passes.dists for j in t.host], np.float64)
+        t.e0 = np.concatenate([meta[:, 4].astype(np.float64), np.fromiter(
+            (j.e0_out for j in t.host), np.float64, len(t.host))])
+        DEVICE_CODEBLOCKS["mq_encode_flat_dist"] += n
     nb = meta[:, 2]
     DEVICE_CODEBLOCKS["mq_encode_device"] += n
     DEVICE_CODEBLOCKS["mq_encode_flat"] += n
     DEVICE_CODEBLOCKS["mq_encode_passes"] += int(
         np.where(nb > 0, 3 * nb - 2, 0).sum())
     DEVICE_CODEBLOCKS["mq_encode_host"] += len(t.host)
+
+
+def _rows(dev: np.ndarray, host: list, dtype) -> np.ndarray:
+    """The device blocks' per-pass rows, then one row a host job, in one
+    zero-padded matrix as wide as the widest."""
+    out = np.zeros((len(dev) + len(host),
+                    max([dev.shape[1]] + [len(r) for r in host])), dtype)
+    out[:len(dev), :dev.shape[1]] = dev
+    for k, r in enumerate(host):
+        out[len(dev) + k, :len(r)] = r
+    return out
 
 
 def _decode_mq_tile(t: MQDecodeTile, backend: str, num_threads: int,

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from functools import cached_property
 from typing import NamedTuple
 
 import numpy as np
@@ -82,6 +81,7 @@ class BlockTable:
         cols = np.stack([m[:, 3], off // bw, off % bw, hw[:, 0], hw[:, 1],
                          m[:, 0], m[:, 1], m[:, 2]], 1)
         derived = dict(zip(_COLS, cols.T), cols=cols, band_w=band_w,
+                       _plans={},
                        blk=np.ascontiguousarray(cols[:, :5]),
                        ht=(self.flags & 1).astype(bool),
                        coded=(hw[:, 0] > 0) & (hw[:, 1] > 0))
@@ -100,10 +100,18 @@ class BlockTable:
     def __len__(self) -> int:
         return len(self.flags)
 
-    @cached_property
-    def _encode_plan(self) -> _EncodePlan:
+    def encode_plan(self, need_dist: bool = False) -> _EncodePlan:
+        """The table's flat encode split, with or without distortions
+        tracked (which caps the card's MQ numbps lower), made once a
+        flag."""
+        plan = self._plans.get(need_dist)
+        if plan is None:
+            plan = self._plans[need_dist] = self._make_plan(need_dist)
+        return plan
+
+    def _make_plan(self, need_dist: bool) -> _EncodePlan:
         card = self.coded & on_card(self.ht, self.h, self.w, self.style,
-                                    self.mb)
+                                    self.mb, need_dist=need_dist)
         dev = np.flatnonzero(card)
         host = np.flatnonzero(self.coded & ~card)
         mq_desc = None
@@ -112,7 +120,8 @@ class BlockTable:
         else:
             mq_desc = mq_encode.desc_rows(
                 self.h[dev], self.w[dev], self.orient[dev],
-                self.style[dev] == CblkStyle.LAZY, 0, self.mb[dev])
+                self.style[dev] == CblkStyle.LAZY, int(need_dist),
+                self.mb[dev])
         return _EncodePlan(dev, host, np.concatenate([dev, host]),
                            np.unique(self.band[self.coded]).tolist(),
                            mq_desc)
@@ -123,7 +132,7 @@ class _EncodePlan(NamedTuple):
     blocks on the device (`dev`) and those the native coder takes
     (`host`), as indices into the table, and both in the batch's `order`;
     the bands they lie in (`used`); for MQ the encoder's rows less the
-    addresses, with no distortions tracked (`mq_desc`, None for HT)."""
+    addresses, with the plan's need_dist flag (`mq_desc`, None for HT)."""
     dev: np.ndarray
     host: np.ndarray
     order: np.ndarray
@@ -160,21 +169,22 @@ def _addresses(table: BlockTable, bands: list, used, blk: np.ndarray,
     return base[b] + (blk[:, 1] * stride[b] + blk[:, 2]) * 4, stride[b]
 
 
-def encode_tile(table: BlockTable, bands: list, device):
-    """A tile of all-HT or all-MQ blocks, with no distortions tracked, as
-    one HTEncodeTile or MQEncodeTile over `bands` (a tensor a band of the
-    table, None where the tile has none); None where the table has no
-    block or a band the batch reads is not fit to read in place.  The
-    blocks the native coder takes come to the host a band at a time, as
-    jobs."""
-    if not len(table):
+def encode_tile(table: BlockTable, bands: list, device,
+                need_dist: bool = False):
+    """A tile of all-HT or all-MQ blocks as one HTEncodeTile or
+    MQEncodeTile over `bands` (a tensor a band of the table, None where
+    the tile has none); an MQ tile may track distortions (`need_dist`), an
+    HT tile may not.  None where it would, where the table has no block or
+    where a band the batch reads is not fit to read in place.  The blocks
+    the native coder takes come to the host a band at a time, as jobs."""
+    ht = bool(table.ht.any())
+    if not len(table) or ht and need_dist:
         return None
-    plan = table._encode_plan
+    plan = table.encode_plan(need_dist)
     blk = table.blk[plan.dev]
     got = _addresses(table, bands, plan.used, blk, device)
     if got is None:
         return None
-    ht = bool(table.ht.any())
     if ht:
         desc = np.empty((len(blk), 4), np.int64)
         desc[:, 2:] = blk[:, 3:]
@@ -188,30 +198,53 @@ def encode_tile(table: BlockTable, bands: list, device):
         if a is None:
             a = on_host[bi] = bands[bi].cpu().numpy()
         host.append(EncodeJob(a[y:y + h, x:x + w], orient, CblkStyle(style),
-                              ht=ht, need_dist=False, numbps_bound=mb))
-    return (HTEncodeTile if ht else MQEncodeTile)(bands, blk, desc, host)
+                              ht=ht, need_dist=need_dist, numbps_bound=mb))
+    if ht:
+        return HTEncodeTile(bands, blk, desc, host)
+    return MQEncodeTile(bands, blk, desc, host, need_dist=need_dist)
 
 
-def encode_results(table: BlockTable, t):
-    """A coded encode_tile batch's results in the table's block order, as
-    the native whole-tile encode leaves them: (offs, lens, numbps,
-    npasses, rates); a block the batch does not hold reads as uncoded.
-    HT: one cleanup pass a coded block, its length the pass's rate; MQ:
-    3 numbps - 2 passes and their rates.  A numbps above the band's M_b
-    is clamped to it, with a warning."""
+class EncodeResults(NamedTuple):
+    """A coded batch's results in the table's block order, as the native
+    whole-tile encode leaves them: each block's byte offset (`offs`) and
+    length (`lens`) in the batch's data, `numbps`, `npasses`, and its
+    passes' cumulative `rates`, (n, stride); where the batch tracked
+    distortions their raw cumulative `dists` (n, stride) float64 and each
+    block's `e0`, else None."""
+    offs: np.ndarray
+    lens: np.ndarray
+    numbps: np.ndarray
+    npasses: np.ndarray
+    rates: np.ndarray
+    dists: np.ndarray | None
+    e0: np.ndarray | None
+
+
+def encode_results(table: BlockTable, t) -> EncodeResults:
+    """A coded encode_tile batch's EncodeResults; a block the batch does
+    not hold reads as uncoded.  HT: one cleanup pass a coded block, its
+    length the pass's rate; MQ: 3 numbps - 2 passes and their rates and,
+    where the batch tracked distortions, their distortions and e0.  A
+    numbps above the band's M_b is clamped to it, with a warning."""
     n = len(table)
-    order = table._encode_plan.order
+    mq = isinstance(t, MQEncodeTile)
+    order = table.encode_plan(mq and t.need_dist).order
     offs = np.zeros(n, np.int64)
     lens = np.zeros(n, np.int32)
     numbps = np.zeros(n, np.int32)
     offs[order] = t.offs
     lens[order] = t.lens
     numbps[order] = t.numbps
-    mq = isinstance(t, MQEncodeTile)
+    dists = e0 = None
     if mq:
         npasses = np.where(numbps > 0, 3 * numbps - 2, 0).astype(np.int32)
         rates = np.zeros((n, t.rates.shape[1]), np.int32)
         rates[order] = t.rates
+        if t.need_dist:
+            dists = np.zeros((n, t.dists.shape[1]))
+            dists[order] = t.dists
+            e0 = np.zeros(n)
+            e0[order] = t.e0
     for g in np.flatnonzero(numbps > table.mb).tolist():
         log.warning("codeblock numbps %d exceeds band M_b %d",
                     numbps[g], table.mb[g])
@@ -219,7 +252,7 @@ def encode_results(table: BlockTable, t):
     if not mq:
         npasses = (numbps > 0).astype(np.int32)
         rates = lens.reshape(n, 1)
-    return offs, lens, numbps, npasses, rates
+    return EncodeResults(offs, lens, numbps, npasses, rates, dists, e0)
 
 
 def decode_tile(table: BlockTable, recs: np.ndarray, data, zb: np.ndarray,

@@ -60,7 +60,7 @@ from .geometry import (
     tile_comp_rect,
 )
 from .ratecontrol import (HullIndex, candidate_slopes, convex_hull,
-                          passes_for_threshold)
+                          convex_hulls_flat, passes_for_threshold)
 
 log = logging.getLogger("grok_tpu_torch")
 
@@ -487,8 +487,8 @@ class TileCompressor:
         band, codeblock); or, where the tile's blocks code on the device as
         flat arrays (_flat_tile_encode), one t1_backend.HTEncodeTile or
         MQEncodeTile and the statics it was built from."""
-        if not need_dist and quota_scale is None:
-            flat = self._flat_tile_encode()
+        if quota_scale is None:
+            flat = self._flat_tile_encode(need_dist)
             if flat is not None:
                 return flat
         tile, tcp = self.tile, self.tcp
@@ -578,19 +578,8 @@ class TileCompressor:
         # the untargeted default skips the band-norm/weight math entirely
         # (_scrub_tile resets pass_dists on pooled-tile reuse)
         if need_dist:
-            reversible = tccp.qmfbid == 1
-            if reversible:
-                norm = quant_mod.band_norm_53(tccp.numresolutions, resno,
-                                              band.orient)
-                delta = 1.0
-            else:
-                norm = quant_mod.band_norm(tccp.numresolutions, resno,
-                                           band.orient)
-                delta = band.stepsize
-            mctw = 1.0
-            if self.mct_norms is not None and compno < len(self.mct_norms):
-                mctw = float(self.mct_norms[compno])
-            weight = (delta * norm * mctw) ** 2
+            weight = self._band_weight(compno, resno, band.orient,
+                                       band.stepsize)
             if lazy:
                 cblk.pass_dists = (job.passes.dists * weight).tolist()
             else:
@@ -685,13 +674,13 @@ class TileCompressor:
         self.tile._t1enc_cache = (skey, statics)
         return statics
 
-    def _flat_tile_encode(self):
+    def _flat_tile_encode(self, need_dist: bool):
         """The card route of a whole tile as one flat batch
         (t1/tile_batch.py encode_tile) and the statics it was built from,
         or None where the tile keeps the per-codeblock route: its
         components are not all HT (not ht_mixed) or all MQ, it has an ROI
-        or a -q target, or encode_tile refuses its bands.  The caller has
-        checked that no distortion is tracked and no rate quota set."""
+        or a -q target, or encode_tile refuses it (HT with distortions, or
+        its bands).  The caller has checked that no rate quota is set."""
         tccps = self.tcp.tccps
         ht = all(t.ht for t in tccps)
         if (self.backend != "device" or self.device is None
@@ -706,21 +695,49 @@ class TileCompressor:
             data = self.tile.comps[compno].data
             bands.append(data.get((resno, orient)) if data is not None
                          else None)
-        t = tile_batch.encode_tile(table, bands, self.device)
+        t = tile_batch.encode_tile(table, bands, self.device, need_dist)
         return None if t is None else (t, (table, cblks, gmap))
 
     def _ingest_flat_tile(self, t, statics) -> None:
         """A flat tile's results into the whole-tile encode arrays
         (_EncSeq) that _assign_layers_flat and _write_packets_seq read, as
-        the native whole-tile encode leaves them."""
+        the native whole-tile encode leaves them: with distortions, the
+        PCRD feed too (e0, the hulls of the raw distortions, the weights)."""
         table, cblks, gmap = statics
-        offs, lens, numbps, npasses, rates = tile_batch.encode_results(
-            table, t)
-        self._enc_seq = _EncSeq(
-            arena=t.data, offs=offs, lens=lens, numbps=numbps,
-            npasses=npasses, zb=table.mb - numbps, isht=table.flags,
-            rates=rates, stride=rates.shape[1], gmap=gmap, cblks=cblks,
+        r = tile_batch.encode_results(table, t)
+        es = self._enc_seq = _EncSeq(
+            arena=t.data, offs=r.offs, lens=r.lens, numbps=r.numbps,
+            npasses=r.npasses, zb=table.mb - r.numbps, isht=table.flags,
+            rates=r.rates, stride=r.rates.shape[1], gmap=gmap, cblks=cblks,
             ncb=len(table))
+        if r.e0 is not None:
+            es.e0 = r.e0
+            es.hull_pass, es.hull_slope, es.hull_rate, es.hull_n = \
+                convex_hulls_flat(r.rates, r.dists, r.npasses)
+            es.weights = self._block_weights(table)
+
+    def _band_weight(self, compno: int, resno: int, orient: int,
+                     stepsize: float) -> float:
+        """A band's PCRD distortion weight, (Delta_b * norm_b *
+        mct_norm)^2: on a reversible component Delta_b 1 and the 5/3
+        norms."""
+        tccp = self.tcp.tccps[compno]
+        if tccp.qmfbid == 1:
+            norm = quant_mod.band_norm_53(tccp.numresolutions, resno, orient)
+            delta = 1.0
+        else:
+            norm = quant_mod.band_norm(tccp.numresolutions, resno, orient)
+            delta = stepsize
+        mctw = 1.0
+        if self.mct_norms is not None and compno < len(self.mct_norms):
+            mctw = float(self.mct_norms[compno])
+        return (delta * norm * mctw) ** 2
+
+    def _block_weights(self, table) -> np.ndarray:
+        """_band_weight of each block of an encode BlockTable."""
+        wb = np.array([self._band_weight(*key, float(delta)) for key, delta
+                       in zip(table.band_keys, table.band_delta)])
+        return wb[table.band]
 
     def _run_t1_tile_native_enc(self, need_dist: bool = False) -> bool:
         """Whole-tile native Tier-1 encode: every codeblock coded from
@@ -789,26 +806,7 @@ class TileCompressor:
             es.hull_slope = tl.hull_slope[:ncb]
             es.hull_rate = tl.hull_rate[:ncb]
             es.hull_n = tl.hull_n[:ncb]
-            # PCRD distortion weight per block: (Delta_b * norm_b *
-            # mct_norm)^2, exactly _ingest_t1_job's per-band math
-            wb = np.empty(len(band_keys), np.float64)
-            tcp = self.tcp
-            for i, (compno, resno, orient) in enumerate(band_keys):
-                tccp = tcp.tccps[compno]
-                if tccp.qmfbid == 1:
-                    norm = quant_mod.band_norm_53(
-                        tccp.numresolutions, resno, orient)
-                    delta = 1.0
-                else:
-                    norm = quant_mod.band_norm(
-                        tccp.numresolutions, resno, orient)
-                    delta = float(bdelta[i])
-                mctw = 1.0
-                if self.mct_norms is not None \
-                        and compno < len(self.mct_norms):
-                    mctw = float(self.mct_norms[compno])
-                wb[i] = (delta * norm * mctw) ** 2
-            es.weights = wb[table.band]
+            es.weights = self._block_weights(table)
         self._enc_seq = es
         return True
 

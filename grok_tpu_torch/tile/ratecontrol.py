@@ -49,6 +49,75 @@ def convex_hull(rates, dists) -> list[tuple]:
     return hull
 
 
+def convex_hulls_flat(rates, dists, npasses):
+    """convex_hull over many blocks at once, in the layout of the native
+    whole-tile encoder's PCRD feed: `rates` (n, stride) cumulative pass
+    rates, `dists` (n, stride) cumulative raw distortions, `npasses` (n,)
+    the passes a block has.  Returns (hull_pass (n, stride) int32,
+    hull_slope (n, stride) float64, hull_rate (n, stride) int32, hull_n
+    (n,) int32), row k's first hull_n[k] entries convex_hull's points and
+    slopes for block k, slope for slope.
+
+    One step a pass column over the blocks that have it (a prefix once
+    the blocks are sorted longest first); inside it, the blocks whose top
+    point the new one dominates pop together until none does, with
+    convex_hull's comparisons and float64 divisions.  Each block's top
+    point is kept apart, its slope NaN on an empty hull, where nothing
+    pops."""
+    import numpy as np
+
+    npasses = np.asarray(npasses, np.int64)
+    n, stride = np.shape(rates)
+    cols = int(npasses.max(initial=0))
+    order = np.argsort(-npasses, kind="stable")
+    live = np.bincount(npasses, minlength=cols + 1)[::-1].cumsum()[::-1]
+    rates = np.asarray(rates)[order, :cols].astype(np.int64)
+    dists = np.asarray(dists, np.float64)[order, :cols]
+    hull_pass = np.zeros(n * stride, np.int32)
+    hull_slope = np.zeros(n * stride, np.float64)
+    hull_rate = np.zeros(n * stride, np.int32)
+    hull_dist = np.zeros(n * stride, np.float64)
+    row = order * stride            # a sorted block's first slot
+    hn = np.zeros(n, np.int64)
+    top_r = np.zeros(n, np.int64)
+    top_d = np.zeros(n, np.float64)
+    top_s = np.full(n, np.nan)
+    pos = np.arange(n)
+    # dd / 0 is inf where dd > 0, the only slopes read
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for i in range(cols):
+            act = slice(0, live[i + 1])
+            rate, dist = rates[act, i], dists[act, i]
+            while True:
+                ids = pos[act]
+                dd = dist - top_d[act]
+                slope = dd / np.maximum(rate - top_r[act], 0)
+                gain = dd > 0
+                pop = gain & (top_s[act] <= slope)
+                push = gain & ~pop
+                g = ids[push]
+                at = row[g] + hn[g]
+                hull_pass[at] = i
+                hull_slope[at] = top_s[g] = slope[push]
+                hull_rate[at] = top_r[g] = rate[push]
+                hull_dist[at] = top_d[g] = dist[push]
+                hn[g] += 1
+                act = ids[pop]
+                if not len(act):
+                    break
+                rate, dist = rate[pop], dist[pop]
+                hn[act] -= 1
+                at = row[act] + np.maximum(hn[act] - 1, 0)
+                empty = hn[act] == 0
+                top_r[act] = np.where(empty, 0, hull_rate[at])
+                top_d[act] = np.where(empty, 0.0, hull_dist[at])
+                top_s[act] = np.where(empty, np.nan, hull_slope[at])
+    hull_n = np.empty(n, np.int32)
+    hull_n[order] = hn
+    return (hull_pass.reshape(n, stride), hull_slope.reshape(n, stride),
+            hull_rate.reshape(n, stride), hull_n)
+
+
 def passes_for_threshold(hull: list[tuple], lam: float) -> int:
     """Number of passes included when keeping hull slopes >= lam."""
     n = 0

@@ -730,6 +730,28 @@ def test_mq_flat_tiles_match_per_codeblock_route(gen, monkeypatch, style):
         assert moved_pb[k] == moved[k], k
 
 
+def test_photo_encode_flat_with_distortions_on_the_card(gen):
+    """BASELINE config 2's 2048 x 2048 RGB photo at 20:1: its 3,072 MQ
+    blocks code on the card in one flat batch that tracks distortions,
+    none on the native coder, and the codestream equals the port's host
+    route (backend="native") byte for byte."""
+    import grok_tpu_torch
+    from grok_tpu_torch import CompressParams, GrkImage
+    from grok_tpu_torch.t1 import backend
+
+    img = GrkImage.from_array(mq_cases.photo(2048, 2048))
+    kw = dict(numresolution=5, irreversible=True, layer_rates=[20])
+    counts = backend.DEVICE_CODEBLOCKS
+    for k in counts:
+        counts[k] = 0
+    data = grok_tpu_torch.compress(img, CompressParams(**kw))
+    assert counts["mq_encode_flat_dist"] == counts["mq_encode_flat"] == \
+        counts["mq_encode_device"] == 3072
+    assert counts["mq_encode_host"] == 0
+    assert data == grok_tpu_torch.compress(
+        img, CompressParams(backend="native", **kw))
+
+
 def _mesh_codec_case(mesh):
     """Lossless HT in one tile, and lossy MQ in six tiles, through
     `mesh`: the single-device card bytes and decodes, each level kernel

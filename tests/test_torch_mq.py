@@ -303,13 +303,14 @@ CODEC_CASES = [
 ]
 
 
-# the cases whose tiles take the flat route both ways: lazy_96's and
-# none_96's one tile and rgb_tiles' six 32 x 32 tiles (all MQ, one layer,
-# no rate target, aligned to the grid); layers_128 tracks distortions for
-# its two layers, so neither way is flat.  The 96 x 96 tiles have no
-# decode shape group of 8, so their flat decode batches hold host jobs
-# alone
-FLAT = {"lazy_96", "none_96", "rgb_tiles"}
+# every case's tiles encode as flat batches (all MQ, no rate quota, ROI
+# or -q, aligned to the grid); layers_128 tracks distortions for its two
+# layers, and its multi-layer decode keeps the per-codeblock route.  The
+# others decode flat too: lazy_96's and none_96's one tile and rgb_tiles'
+# six 32 x 32 tiles, one layer each.  The 96 x 96 tiles have no decode
+# shape group of 8, so their flat decode batches hold host jobs alone
+FLAT_DECODE = {"lazy_96", "none_96", "rgb_tiles"}
+DIST = {"layers_128"}
 
 
 @pytest.mark.parametrize("name,make,kw", CODEC_CASES,
@@ -318,8 +319,9 @@ def test_codec_matches_reference(rng, monkeypatch, name, make, kw):
     """backend="device" on device="cpu": byte-identical to grok_tpu's
     native and device routes, decodes exactly, and codes on the device
     route exactly the MQ blocks grok_tpu's device routers take (the
-    per-shape decode gate of 8 included), as flat tile batches where the
-    gate admits the tiles."""
+    per-shape decode gate of 8 included), as flat tile batches (with
+    distortions where rate control reads them) where the gates admit the
+    tiles."""
     arr = make(rng)
     img = grok_tpu.GrkImage.from_array(arr)
     ref_kw = dict(kw)
@@ -345,12 +347,88 @@ def test_codec_matches_reference(rng, monkeypatch, name, make, kw):
     assert counts["mq_decode_host"] + counts["mq_decode_device"] == \
         counts["mq_encode_device"] + counts["mq_encode_host"]
     assert counts["encode_device"] == counts["decode_device"] == 0
-    if name in FLAT:
-        assert counts["mq_encode_flat"] == counts["mq_encode_device"] > 0
+    assert counts["mq_encode_flat"] == counts["mq_encode_device"] > 0
+    assert counts["mq_encode_flat_dist"] == (
+        counts["mq_encode_flat"] if name in DIST else 0)
+    if name in FLAT_DECODE:
         assert counts["mq_decode_flat"] == counts["mq_decode_device"]
         assert (counts["mq_decode_flat"] > 0) == (name == "rgb_tiles")
     else:
-        assert counts["mq_encode_flat"] == counts["mq_decode_flat"] == 0
+        assert counts["mq_decode_flat"] == 0
+
+
+# BASELINE config 2's shape, small: RGB, 9/7 + ICT, one layer at 20:1,
+# the auto style (LAZY)
+PHOTO_KW = dict(numresolution=4, irreversible=True, layer_rates=[20])
+
+
+def _reset(counts):
+    for k in counts:
+        counts[k] = 0
+    return counts
+
+
+def test_photo_codec_runs_flat_with_distortions(monkeypatch):
+    """A photo-shaped lossy encode on backend="device", device="cpu": its
+    one tile codes as a flat MQ batch that tracks distortions and hands
+    rate control the hulls of the kernel twin's distortions; the
+    codestream equals grok_tpu's native and device routes' byte for byte,
+    and the decode equals grok_tpu's native decode and is within 1 of its
+    device decode (test_torch_codec.py's lossy tolerance)."""
+    img = grok_tpu.GrkImage.from_array(cases.photo(96, 128))
+    ref_nat = grok_tpu.compress(img, grok_tpu.CompressParams(
+        backend="native", **PHOTO_KW))
+    routed = _Routed(monkeypatch)
+    assert grok_tpu.compress(img, grok_tpu.CompressParams(
+        backend="device", **PHOTO_KW)) == ref_nat
+    counts = _reset(t1_backend.DEVICE_CODEBLOCKS)
+    data = grok_tpu_torch.compress(port_params.from_reference(img),
+                                   grok_tpu_torch.CompressParams(**PHOTO_KW),
+                                   device="cpu")
+    assert data == ref_nat
+    assert counts["mq_encode_flat_dist"] == counts["mq_encode_flat"] == \
+        counts["mq_encode_device"] == routed.enc > 0
+    assert counts["mq_encode_host"] == 0
+    out = grok_tpu_torch.decompress(data, device="cpu").to_array()
+    assert np.array_equal(out, grok_tpu.decompress(
+        data, grok_tpu.DecompressParams(backend="native")).to_array())
+    dev = grok_tpu.decompress(data, grok_tpu.DecompressParams(
+        backend="device")).to_array()
+    assert np.abs(out - dev).max() <= 1
+
+
+@pytest.mark.parametrize("layer_rates", [[20], [40, 8]],
+                         ids=["one_layer", "two_layers"])
+def test_flat_distortions_join_host_and_device_hulls(monkeypatch,
+                                                     layer_rates):
+    """A flat batch with distortions whose blocks `on_card` sends partly to
+    the native coder: the native coder's rates, distortions and e0 join
+    the twin's in one feed, and the codestream still equals grok_tpu's
+    native route's.  The test codes on a tile pool of its own, dropped
+    at teardown, since the placement it forces is cached on the pooled
+    tile."""
+    from grok_tpu_torch.t1 import tile_batch
+    from grok_tpu_torch.tile import processor
+
+    monkeypatch.setattr(processor, "_TILE_POOL", {})
+    real = tile_batch.on_card
+
+    def some_on_host(*a, **k):
+        card = real(*a, **k)
+        return card & (np.arange(card.size) % 3 != 1)
+
+    monkeypatch.setattr(tile_batch, "on_card", some_on_host)
+    kw = dict(PHOTO_KW, numresolution=3, layer_rates=layer_rates)
+    img = grok_tpu.GrkImage.from_array(cases.photo(72 + 8 * len(layer_rates),
+                                                   104))
+    counts = _reset(t1_backend.DEVICE_CODEBLOCKS)
+    data = grok_tpu_torch.compress(port_params.from_reference(img),
+                                   grok_tpu_torch.CompressParams(**kw),
+                                   device="cpu")
+    assert data == grok_tpu.compress(img, grok_tpu.CompressParams(
+        backend="native", **kw))
+    assert counts["mq_encode_flat_dist"] == counts["mq_encode_device"] > 0
+    assert counts["mq_encode_host"] > 0
 
 
 def _lazy_depths(rng, h, w):

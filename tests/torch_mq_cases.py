@@ -24,6 +24,17 @@ def enc_blocks(rng, h, w, mx, dens, n=3):
     return batch
 
 
+def photo(h, w):
+    """BASELINE config 2's photo content (smooth colour fields, noise sigma
+    3) at h x w, 8-bit RGB as int32."""
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:h, 0:w].astype(float)
+    rgb = np.stack([128 + 90 * np.sin(xx / 23) * np.cos(yy / 17),
+                    128 + 80 * np.sin(xx / 15),
+                    128 + 80 * np.cos(yy / 19)], -1)
+    return (rgb + rng.normal(0, 3, rgb.shape)).clip(0, 255).astype(np.int32)
+
+
 def dist_blocks(rng, n=5, h=32, w=32):
     """grok_tpu's test_device_mq_encode_with_distortion_tracking blocks."""
     return [rng.normal(0, 300, (h, w)).astype(np.int32) for _ in range(n)]
